@@ -1,0 +1,115 @@
+"""Counter-based lane RNG (twin of raytracer_project_tpu/core/rng.py).
+
+Every draw is a pure function of (seed, pixel, sample, context, stream):
+three ChaCha quarter-rounds over four u32 counter words. The port must
+reproduce the reference's bits exactly, and torch has no full u32
+arithmetic, so words are carried as int64 tensors masked with 0xFFFFFFFF
+after every add and shift. The CUDA kernels (csrc/shade_advance.cu) carry
+the same mix on native uint32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+_C0 = 0x9E3779B9
+_C1 = 0x85EBCA6B
+_C2 = 0xC2B2AE35
+_C3 = 0x27D4EB2F
+
+STREAM_CAMERA = 0
+STREAM_SCATTER = 1
+STREAM_RR = 2
+STREAM_VOLUME = 3
+_N_STREAMS = 16
+
+TWO_PI = 6.2831855  # f32(2 * pi), the constant the reference's f32 math uses
+
+
+class LaneRng(NamedTuple):
+    """Per-lane stateless stream: seed is a Python int (u32); pix, samp and
+    ctx are int64 tensors holding u32 values (ctx may be a Python int)."""
+
+    seed: int
+    pix: torch.Tensor
+    samp: torch.Tensor
+    ctx: object
+
+
+def seed_from_int(k: int) -> int:
+    """u32 seed of the integer render seed k: the reference's
+    seed_from_key(PRNGKey(k)) = data[0] + data[1] * 0x9E3779B9 with
+    key data [0, k]."""
+    return (int(k) * _C0) & MASK32
+
+
+def u32(x) -> torch.Tensor:
+    """Tensor of u32 values as int64 (i32 inputs reinterpret modulo 2^32)."""
+    return torch.as_tensor(x).to(torch.int64) & MASK32
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def _mix4(a, b, c, d):
+    """Three ChaCha quarter-rounds over the 4-word state (reference
+    core/rng.py:105-126)."""
+    a = a ^ _C0
+    b = (b + _C1) & MASK32
+    c = c ^ _C2
+    d = (d + _C3) & MASK32
+    for _ in range(3):
+        a = (a + b) & MASK32
+        d = _rotl(d ^ a, 16)
+        c = (c + d) & MASK32
+        b = _rotl(b ^ c, 12)
+        a = (a + b) & MASK32
+        d = _rotl(d ^ a, 8)
+        c = (c + d) & MASK32
+        b = _rotl(b ^ c, 7)
+    return a, b, c, d
+
+
+def bits4(lr: LaneRng, stream: int, salt: int = 0):
+    """Four u32 words (int64 tensors) for this lane batch at a draw site."""
+    word = (torch.as_tensor(lr.ctx, dtype=torch.int64) * _N_STREAMS
+            + stream) & MASK32
+    seed = (lr.seed + ((salt * _C1) & MASK32)) & MASK32
+    pix, samp, word = torch.broadcast_tensors(lr.pix, lr.samp,
+                                              word.to(lr.pix.device))
+    return _mix4(pix, samp, word, torch.full_like(pix, seed))
+
+
+def _u01(bits) -> torch.Tensor:
+    """u32 -> f32 uniform in [0, 1): top 24 bits, exact integer convert."""
+    return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def draw_uniform(lr: LaneRng, stream: int, salt: int = 0) -> torch.Tensor:
+    a, _, _, _ = bits4(lr, stream, salt)
+    return _u01(a)
+
+
+def draw_unit_vector_and_uniform_soa(lr: LaneRng, stream: int):
+    """((x, y, z) uniform unit-sphere vector, uniform) from one hash."""
+    a, b, c, _ = bits4(lr, stream)
+    z = 1.0 - 2.0 * _u01(a)
+    phi = TWO_PI * _u01(b)
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return (r * torch.cos(phi), r * torch.sin(phi), z), _u01(c)
+
+
+def draw_camera(lr: LaneRng, stream: int = STREAM_CAMERA):
+    """(jitter x, jitter y) in [-0.5, 0.5) and a unit-disk point (r0, r1)
+    from one hash (camera.hpp:784-794)."""
+    a, b, c, d = bits4(lr, stream)
+    jx = _u01(a) - 0.5
+    jy = _u01(b) - 0.5
+    r = torch.sqrt(_u01(c))
+    theta = TWO_PI * _u01(d)
+    return (jx, jy), (r * torch.cos(theta), r * torch.sin(theta))

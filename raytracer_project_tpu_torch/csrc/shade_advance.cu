@@ -1,0 +1,429 @@
+// K3, shade-advance (replaces the Pallas kernel _shade_advance_kernel with
+// _inclusive_rank, _sun_sky and _raygen, raytracer_project_tpu/ops/
+// fused_step.py:669, :571, :591, :633; beauty only).
+//
+// Per lane: background (sun-sky, solid or HDR texel), bump-mapped normal,
+// the branchless Lambertian / metal / dielectric / isotropic / emissive
+// scatter, the radiance and throughput update, the weak-ray cutoff and
+// Russian roulette, the finished-path target, and respawn of free lanes
+// from the global work counter with the camera ray regenerated in the
+// kernel. The texel, bump-delta and HDR rows are direct loads here (the
+// reference gathers them between its kernels).
+//
+// The respawn needs, for each free lane, the number of free lanes before
+// it in lane order. The reference carries that count across a grid that
+// runs in order on the TPU; CUDA blocks run in no order, so the step is two
+// launches with a deterministic scan and no atomics:
+//   shade_kernel    shades every lane, writes the advanced state, and each
+//                   block's counts of free, live and still-active lanes;
+//   respawn_kernel  each block sums the free counts of the blocks before
+//                   it, ranks its free lanes with warp ballots, and gives
+//                   the lane of rank r the work id next_work + r - 1 while
+//                   that is below total_work; block 0 writes next_work,
+//                   the segment count (int64) and the live count.
+//
+// Bound on the H100: bytes. Per lane it reads 24 record rows, 16 state
+// rows and up to 6 texel words and writes 16 state rows, 3 contributions
+// and a target: about 272 B/lane at 3.35 TB/s.
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+#define BLOCK 256
+#define NWARP (BLOCK / 32)
+
+enum {
+  RO_HIT = 0, RO_T = 1, RO_N = 2, RO_TAN = 5, RO_BIT = 8, RO_FRONT = 11,
+  RO_MTYPE = 12, RO_PARAM = 13, RO_BSTR = 14, RO_BASE = 15, RO_GU = 18,
+  RO_GV = 19, RO_HASB = 20, RO_TEXROW = 21, RO_BUMPROW = 22, RO_ENVROW = 23,
+};
+enum {
+  BP_CENTER = 0, BP_P00 = 3, BP_DU = 6, BP_DV = 9, BP_DDU = 12, BP_DDV = 15,
+  BP_SUN_DIR = 18, BP_SUN_COL = 21, BP_SUN_INT = 24, BP_SUN_SIZE = 25,
+  BP_INTENSITY = 26, BP_BG = 27,
+};
+enum { PHYSICAL_SUN = 0, HDR_MAP = 1, SOLID_COLOR = 2 };
+enum { STREAM_CAMERA = 0, STREAM_SCATTER = 1, STREAM_RR = 2 };
+
+#define RAY_EPSILON 1e-4f
+#define WEAK_RAY_EPS 1e-4f
+#define RR_START_BOUNCE 10
+#define RR_P_MIN 0.05f
+#define RR_P_MAX 0.95f
+
+// --- counter-hash lane RNG (core/rng.py) ------------------------------------
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+struct Bits4 {
+  uint32_t a, b, c, d;
+};
+
+__device__ __forceinline__ Bits4 bits4(uint32_t seed, uint32_t pix,
+                                       uint32_t samp, uint32_t ctx,
+                                       int stream) {
+  uint32_t a = pix ^ 0x9E3779B9u;
+  uint32_t b = samp + 0x85EBCA6Bu;
+  uint32_t c = (ctx * 16u + (uint32_t)stream) ^ 0xC2B2AE35u;
+  uint32_t d = seed + 0x27D4EB2Fu;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    a += b; d = rotl(d ^ a, 16);
+    c += d; b = rotl(b ^ c, 12);
+    a += b; d = rotl(d ^ a, 8);
+    c += d; b = rotl(b ^ c, 7);
+  }
+  return Bits4{a, b, c, d};
+}
+
+__device__ __forceinline__ float u01(uint32_t bits) {
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+// --- sky and camera ---------------------------------------------------------
+
+__device__ V3 sun_sky(const float* bp, V3 ud) {
+  float sdx = bp[BP_SUN_DIR], sdy = bp[BP_SUN_DIR + 1], sdz = bp[BP_SUN_DIR + 2];
+  float sun_height = sdy;
+  float adjusted = sun_height - 0.05f;
+  float sky_exposure = clampf(adjusted * 8.0f + 1.4f, 0.0f, 1.0f);
+  float day_factor = clampf(adjusted * 10.0f + 1.1f, 0.0f, 1.0f);
+  float sunset_i = clampf(1.0f - fabsf(adjusted + 0.05f) * 30.0f, 0.0f, 1.0f);
+  float sunset = adjusted > -0.1f ? sunset_i : 0.0f;
+  sunset = sun_height < 0.0f ? sunset * (sun_height * 10.0f + 1.0f) : sunset;
+  sunset = clampf(sunset, 0.0f, 1.0f);
+  const float zen[3] = {0.01f, 0.03f, 0.1f};
+  const float zday[3] = {0.2f, 0.5f, 1.0f};
+  const float hor[3] = {0.05f, 0.02f, 0.01f};
+  const float hday[3] = {0.6f, 0.8f, 1.0f};
+  const float hsun[3] = {1.0f, 0.35f, 0.1f};
+  const float scol_sunset[3] = {1.0f, 0.3f, 0.1f};
+  float visibility = clampf(sun_height * 5.0f + 1.0f, 0.0f, 1.0f);
+  float threshold = 1.0f - bp[BP_SUN_SIZE] * 0.001f;
+  float sun_focus = ud.x * sdx + ud.y * sdy + ud.z * sdz;
+  float e1 = threshold + 0.0002f;
+  float st = clampf((sun_focus - threshold) / (e1 - threshold), 0.0f, 1.0f);
+  float alpha = st * st * (3.0f - 2.0f * st);
+  bool disc_on = sun_focus > threshold && adjusted > -0.1f;
+  bool up = ud.y > 0.0f;
+  float gain = bp[BP_INTENSITY] * 1.5f * sky_exposure;
+  float out[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float zenith = zen[k] * (1.0f - day_factor) + zday[k] * day_factor;
+    float horizon = hor[k] * (1.0f - day_factor) + hday[k] * day_factor;
+    horizon = horizon * (1.0f - sunset) + hsun[k] * sunset;
+    float sky = up ? (1.0f - ud.y) * horizon + ud.y * zenith : horizon * 0.1f;
+    float s_col = bp[BP_SUN_COL + k] * (1.0f - sunset) + scol_sunset[k] * sunset;
+    float disc = disc_on ? s_col * bp[BP_SUN_INT] * visibility * alpha : 0.0f;
+    out[k] = sky * gain + disc;
+  }
+  return v3(out[0], out[1], out[2]);
+}
+
+// Camera ray of (pixel, sample), context 0 (camera.hpp:784-794).
+__device__ void raygen(const float* bp, uint32_t seed, int pix, int samp,
+                       int width, float inv_w, V3& o, V3& d) {
+  Bits4 h = bits4(seed, (uint32_t)pix, (uint32_t)samp, 0u, STREAM_CAMERA);
+  float off_x = u01(h.a) - 0.5f;
+  float off_y = u01(h.b) - 0.5f;
+  float disk_r = sqrtf(u01(h.c));
+  float disk_t = TWO_PI_F * u01(h.d);
+  float r0 = disk_r * cosf(disk_t);
+  float r1 = disk_r * sinf(disk_t);
+  float w = (float)width;
+  float pf = (float)pix;
+  float jj = floorf((pf + 0.5f) * inv_w);
+  float ii = pf - jj * w;
+  jj = ii < 0.0f ? jj - 1.0f : (ii >= w ? jj + 1.0f : jj);
+  ii = pf - jj * w;
+  float px = ii + off_x;
+  float py = jj + off_y;
+  float oc[3], dc[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    oc[k] = bp[BP_CENTER + k] + r0 * bp[BP_DDU + k] + r1 * bp[BP_DDV + k];
+    dc[k] = bp[BP_P00 + k] + px * bp[BP_DU + k] + py * bp[BP_DV + k] - oc[k];
+  }
+  o = v3(oc[0], oc[1], oc[2]);
+  d = v3(dc[0], dc[1], dc[2]);
+}
+
+// --- launch 1: shade and advance ---------------------------------------------
+
+__global__ void shade_kernel(
+    const float* __restrict__ rec, const float* __restrict__ sf,
+    const int* __restrict__ si, int p, const float* __restrict__ bp,
+    const float* __restrict__ atlas_rows, const float* __restrict__ grad_rows,
+    const float* __restrict__ env_rows, uint32_t seed, int n_pixels,
+    int max_depth, int env_mode, float* __restrict__ out_f,
+    int* __restrict__ out_i, float* __restrict__ contrib,
+    int* __restrict__ tgt, int* __restrict__ counts) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool in = i < p;
+  bool live = false, free_lane = false, still = false;
+  if (in) {
+    const float* R = rec + i;
+    bool hit = R[RO_HIT * p] > 0.5f;
+    float t_hit = R[RO_T * p];
+    V3 normal = v3(R[RO_N * p], R[(RO_N + 1) * p], R[(RO_N + 2) * p]);
+    V3 tangent = v3(R[RO_TAN * p], R[(RO_TAN + 1) * p], R[(RO_TAN + 2) * p]);
+    V3 bitangent = v3(R[RO_BIT * p], R[(RO_BIT + 1) * p], R[(RO_BIT + 2) * p]);
+    bool front = R[RO_FRONT * p] > 0.5f;
+    float mtype = R[RO_MTYPE * p], param = R[RO_PARAM * p];
+    float bstr = R[RO_BSTR * p];
+    V3 base_col = v3(R[RO_BASE * p], R[(RO_BASE + 1) * p], R[(RO_BASE + 2) * p]);
+    float gate_u = R[RO_GU * p], gate_v = R[RO_GV * p];
+    float texrow = R[RO_TEXROW * p];
+
+    int trow = (int)fmaxf(texrow, 0.0f);
+    int brow = (int)fmaxf(R[RO_BUMPROW * p], 0.0f);
+    float4 tex4 = __ldg(reinterpret_cast<const float4*>(atlas_rows) + trow);
+    float2 gb2 = __ldg(reinterpret_cast<const float2*>(grad_rows) + brow);
+    bool is_image_lane = texrow >= -0.5f;
+    V3 tex3 = is_image_lane ? v3(tex4.x, tex4.y, tex4.z) : base_col;
+
+    V3 o = v3(sf[i], sf[p + i], sf[2 * p + i]);
+    V3 d = v3(sf[3 * p + i], sf[4 * p + i], sf[5 * p + i]);
+    V3 thr = v3(sf[6 * p + i], sf[7 * p + i], sf[8 * p + i]);
+    V3 rad = v3(sf[9 * p + i], sf[10 * p + i], sf[11 * p + i]);
+    live = si[i] > 0;
+    int bounce = si[p + i], samp = si[2 * p + i], li = si[3 * p + i];
+    uint32_t ctx = ((uint32_t)bounce) << 1;
+
+    float t_safe = hit ? t_hit : 1.0f;
+    V3 hp = v3(t_safe * d.x + o.x, t_safe * d.y + o.y, t_safe * d.z + o.z);
+
+    V3 ud = normalize(d);
+    V3 bg;
+    if (env_mode == PHYSICAL_SUN) {
+      bg = sun_sky(bp, ud);
+    } else if (env_mode == SOLID_COLOR) {
+      float s = bp[BP_INTENSITY];
+      bg = v3(bp[BP_BG] * s * 1.0f, bp[BP_BG + 1] * s * 1.0f, bp[BP_BG + 2] * s * 1.0f);
+    } else {
+      float4 e4 = __ldg(reinterpret_cast<const float4*>(env_rows) +
+                        (int)R[RO_ENVROW * p]);
+      float s = bp[BP_INTENSITY];
+      bg = v3(e4.x * s, e4.y * s, e4.z * s);
+    }
+
+    Bits4 hs = bits4(seed, (uint32_t)li, (uint32_t)samp, ctx, STREAM_SCATTER);
+    float z = 1.0f - 2.0f * u01(hs.a);
+    float phi = TWO_PI_F * u01(hs.b);
+    float rr = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+    V3 sphere_draw = v3(rr * cosf(phi), rr * sinf(phi), z);
+    float choice_u = u01(hs.c);
+
+    float f_u = gb2.x * gate_u * bstr;
+    float f_v = gb2.y * gate_v * bstr;
+    V3 n_b = v3(normal.x - f_u * tangent.x - f_v * bitangent.x,
+                normal.y - f_u * tangent.y - f_v * bitangent.y,
+                normal.z - f_u * tangent.z - f_v * bitangent.z);
+    bool has_bump = R[RO_HASB * p] > 0.5f;
+    V3 working_n = has_bump ? normalize(n_b) : normal;
+    V3 unit_in = normalize(d);
+
+    V3 lam_dir = add(working_n, sphere_draw);
+    bool nz = fabsf(lam_dir.x) < 1e-8f && fabsf(lam_dir.y) < 1e-8f &&
+              fabsf(lam_dir.z) < 1e-8f;
+    lam_dir = nz ? working_n : lam_dir;
+    V3 eps_origin = axpy(RAY_EPSILON, normal, hp);
+
+    float dd2 = 2.0f * dot(unit_in, working_n);
+    V3 reflected = v3(unit_in.x - dd2 * working_n.x, unit_in.y - dd2 * working_n.y,
+                      unit_in.z - dd2 * working_n.z);
+    V3 metal_dir = normalize(axpy(param, sphere_draw, reflected));
+    bool metal_ok = dot(metal_dir, normal) > 0.0f;
+
+    float ri = front ? 1.0f / fmaxf(param, 1e-6f) : param;
+    float cos_theta = fminf(dot(neg(unit_in), working_n), 1.0f);
+    float sin_theta = safe_sqrt(1.0f - cos_theta * cos_theta);
+    bool cannot_refract = ri * sin_theta > 1.0f;
+    float r0 = (1.0f - ri) / (1.0f + ri);
+    float r0s = r0 * r0;
+    float c1 = 1.0f - cos_theta;
+    float c2 = c1 * c1;
+    float reflect_prob = r0s + (1.0f - r0s) * (c1 * (c2 * c2));
+    bool do_reflect = cannot_refract || reflect_prob > choice_u;
+    // refract(unit_in, working_n, ri) (vec3.hpp:209-213)
+    float cos_r = fminf(dot(neg(unit_in), working_n), 1.0f);
+    V3 perp = scale(add(unit_in, scale(working_n, cos_r)), ri);
+    float par_len = -sqrtf(fabsf(1.0f - dot(perp, perp)));
+    V3 refracted = add(perp, scale(working_n, par_len));
+    V3 diel_dir = do_reflect ? reflected : refracted;
+    bool offset_out = dot(diel_dir, normal) > 0.0f;
+    V3 diel_origin = axpy(offset_out ? RAY_EPSILON : -RAY_EPSILON, normal, hp);
+
+    bool is_lam = mtype == 0.0f, is_metal = mtype == 1.0f;
+    bool is_diel = mtype == 2.0f, is_emit = mtype == 3.0f;
+    bool is_iso = mtype == 4.0f;
+    V3 sc_dir = is_lam ? lam_dir : (is_metal ? metal_dir : (is_diel ? diel_dir : sphere_draw));
+    V3 sc_origin = (is_lam || is_metal) ? eps_origin : (is_diel ? diel_origin : hp);
+    V3 attenuation = tex3;
+    bool scattered = is_lam || (is_metal && metal_ok) || is_diel || is_iso;
+    V3 emitted = is_emit ? tex3 : v3(0.0f, 0.0f, 0.0f);
+
+    bool miss = live && !hit;
+    rad = v3(rad.x + (miss ? thr.x * bg.x : 0.0f), rad.y + (miss ? thr.y * bg.y : 0.0f),
+             rad.z + (miss ? thr.z * bg.z : 0.0f));
+    bool active = live && hit;
+    rad = v3(rad.x + (active ? thr.x * emitted.x : 0.0f),
+             rad.y + (active ? thr.y * emitted.y : 0.0f),
+             rad.z + (active ? thr.z * emitted.z : 0.0f));
+    thr = (active && scattered) ? mul(thr, attenuation) : thr;
+    active = active && scattered;
+
+    bool late = (bounce - 1) > RR_START_BOUNCE;
+    bool weak = late && sqrtf(dot(thr, thr)) < WEAK_RAY_EPS;
+    active = active && !weak;
+    float p_rr = clampf(fmaxf(thr.x, fmaxf(thr.y, thr.z)), RR_P_MIN, RR_P_MAX);
+    float u_rr = u01(bits4(seed, (uint32_t)li, (uint32_t)samp, ctx, STREAM_RR).a);
+    active = active && !(late && u_rr > p_rr);
+    thr = (late && active) ? scale(thr, 1.0f / p_rr) : thr;
+    active = active && (bounce + 1 < max_depth);
+
+    bool done = live && !active;
+    tgt[i] = done ? li : n_pixels;
+    contrib[i] = done ? rad.x : 0.0f;
+    contrib[p + i] = done ? rad.y : 0.0f;
+    contrib[2 * p + i] = done ? rad.z : 0.0f;
+
+    V3 no = active ? sc_origin : o;
+    V3 nd = active ? sc_dir : d;
+    const float vals[12] = {no.x, no.y, no.z, nd.x, nd.y, nd.z,
+                            thr.x, thr.y, thr.z, rad.x, rad.y, rad.z};
+#pragma unroll
+    for (int k = 0; k < 12; ++k) out_f[k * p + i] = vals[k];
+    still = live && active;
+    out_i[i] = still ? 1 : 0;
+    out_i[p + i] = bounce + 1;
+    out_i[2 * p + i] = samp;
+    out_i[3 * p + i] = li;
+    free_lane = !still;
+  }
+  int n_free = __syncthreads_count(free_lane);
+  int n_live = __syncthreads_count(live);
+  int n_still = __syncthreads_count(still);
+  if (threadIdx.x == 0) {
+    counts[blockIdx.x] = n_free;
+    counts[gridDim.x + blockIdx.x] = n_live;
+    counts[2 * gridDim.x + blockIdx.x] = n_still;
+  }
+}
+
+// --- launch 2: respawn --------------------------------------------------------
+
+__device__ long long block_sum(long long v, long long* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  long long s = 0;
+  for (int w = 0; w < NWARP; ++w) s += red[w];
+  return s;
+}
+
+__global__ void respawn_kernel(
+    int p, const float* __restrict__ bp, uint32_t seed, int sample_offset,
+    int n_pixels, float inv_n, int width, float inv_w, int total_work,
+    const int* __restrict__ next_work_in, const long long* __restrict__ seg_in,
+    const int* __restrict__ counts, float* __restrict__ out_f,
+    int* __restrict__ out_i, int* __restrict__ next_out,
+    long long* __restrict__ seg_out, int* __restrict__ live_count) {
+  __shared__ long long red[NWARP];
+  __shared__ int warp_free[NWARP];
+  const int nb = gridDim.x;
+  const int b = blockIdx.x;
+  const long long next_work = next_work_in[0];
+
+  // Free lanes in the blocks before this one.
+  long long before = 0;
+  for (int j = threadIdx.x; j < b; j += BLOCK) before += counts[j];
+  before = block_sum(before, red);
+
+  if (b == 0) {
+    long long tf = 0, tl = 0, ts = 0;
+    for (int j = threadIdx.x; j < nb; j += BLOCK) {
+      tf += counts[j];
+      tl += counts[nb + j];
+      ts += counts[2 * nb + j];
+    }
+    tf = block_sum(tf, red);
+    tl = block_sum(tl, red);
+    ts = block_sum(ts, red);
+    if (threadIdx.x == 0) {
+      long long room = (long long)total_work - next_work;
+      long long spawned = room < 0 ? 0 : (room < tf ? room : tf);
+      long long nw = next_work + tf;
+      next_out[0] = (int)(nw < total_work ? nw : total_work);
+      seg_out[0] = seg_in[0] + tl;
+      live_count[0] = (int)(ts + spawned);
+    }
+  }
+
+  int i = b * BLOCK + threadIdx.x;
+  bool free_lane = i < p && out_i[i] == 0;
+  // Inclusive rank of this lane among the block's free lanes.
+  unsigned ballot = __ballot_sync(0xffffffffu, free_lane);
+  int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) warp_free[warp] = __popc(ballot);
+  __syncthreads();
+  int rank = __popc(ballot & (0xffffffffu >> (31 - lane)));
+  for (int w = 0; w < warp; ++w) rank += warp_free[w];
+  if (!free_lane) return;
+  long long new_w = next_work + before + rank - 1;
+  if (new_w >= total_work) return;
+
+  // Work id -> (pixel, sample), in f32 as the reference decodes it (exact
+  // below 2^24).
+  float wf = (float)new_w;
+  float n = (float)n_pixels;
+  float sr = floorf((wf + 0.5f) * inv_n);
+  float sli = wf - sr * n;
+  sr = sli < 0.0f ? sr - 1.0f : (sli >= n ? sr + 1.0f : sr);
+  sli = wf - sr * n;
+  int new_li = (int)sli;
+  int new_samp = sample_offset + (int)sr;
+  V3 o, d;
+  raygen(bp, seed, new_li, new_samp, width, inv_w, o, d);
+  const float vals[12] = {o.x, o.y, o.z, d.x, d.y, d.z,
+                          1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 12; ++k) out_f[k * p + i] = vals[k];
+  out_i[i] = 1;
+  out_i[p + i] = 0;
+  out_i[2 * p + i] = new_samp;
+  out_i[3 * p + i] = new_li;
+}
+
+extern "C" int shade_advance_launch(
+    const void* rec, const void* state_f, const void* state_i, int p,
+    const void* bparams, const void* atlas_rows, const void* grad_rows,
+    const void* env_rows, unsigned int seed, int sample_offset, int n_pixels,
+    float inv_n, int width, float inv_w, int total_work, int max_depth,
+    int env_mode, const void* next_work, const void* segments, void* out_f,
+    void* out_i, void* contrib, void* tgt, void* counts, void* next_out,
+    void* seg_out, void* live_count, void* stream) {
+  int grid = (p + BLOCK - 1) / BLOCK;
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  shade_kernel<<<grid, BLOCK, 0, s>>>(
+      (const float*)rec, (const float*)state_f, (const int*)state_i, p,
+      (const float*)bparams, (const float*)atlas_rows,
+      (const float*)grad_rows, (const float*)env_rows, seed, n_pixels,
+      max_depth, env_mode, (float*)out_f, (int*)out_i, (float*)contrib,
+      (int*)tgt, (int*)counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  respawn_kernel<<<grid, BLOCK, 0, s>>>(
+      p, (const float*)bparams, seed, sample_offset, n_pixels, inv_n, width,
+      inv_w, total_work, (const int*)next_work, (const long long*)segments,
+      (const int*)counts, (float*)out_f, (int*)out_i, (int*)next_out,
+      (long long*)seg_out, (int*)live_count);
+  return (int)cudaGetLastError();
+}

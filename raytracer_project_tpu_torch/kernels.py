@@ -1,0 +1,142 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by nvcc into a shared library with a plain C
+interface under <repo>/build/torch_kernels/ and loaded with ctypes. The
+build happens at first use, on the machine with the card: all sources are
+compiled at once, one nvcc process each. A library newer than its source
+is reused.
+
+Every C entry takes pointers and the stream as `void*`, launches on
+PyTorch's current stream, allocates nothing, and returns
+`cudaGetLastError()`; `check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+SOURCES = ("closest_hit", "decode", "shade_advance")
+
+# --fmad=false keeps every a*b+c as a rounded product and a rounded sum,
+# the arithmetic of the plain PyTorch versions; fmaf() stays an FMA.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+              "-Xptxas", "-v")
+
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# C entry point -> (source, argument types); every entry returns the
+# launch's cudaGetLastError() as int.
+SIGNATURES = {
+    "closest_hit_od": ("closest_hit", [_P, _I, _F] + [_P, _I, _P, _I] * 3
+                       + [_P, _P, _P, _P]),
+    "decode_launch": ("decode", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
+                                 _I, _I, _I, _I, _F, _F, _I, _F, _F, _P, _P]),
+    "shade_advance_launch": ("shade_advance",
+                             [_P, _P, _P, _I, _P, _P, _P, _P, _U, _I, _I, _F,
+                              _I, _F, _I, _I, _I] + [_P] * 11),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    deps = [_CSRC / f"{name}.cu", *_CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
+
+
+def build_all(force: bool = False) -> float:
+    """Compile every stale source in parallel; returns the wall seconds.
+    The compiler's resource report goes to build/torch_kernels/<name>.log."""
+    todo = [n for n in SOURCES if force or _stale(n)]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for name in todo:
+        log = open(BUILD_DIR / f"{name}.log", "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(_lib_path(name)),
+               str(_CSRC / f"{name}.cu")]
+        procs.append((name, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc:
+            failed.append(name)
+    if failed:
+        msgs = "\n".join(
+            f"--- {n}\n{(BUILD_DIR / f'{n}.log').read_text()[-4000:]}"
+            for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{msgs}")
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, building it first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        if _stale(name):
+            build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _loaded[name] = lib
+    return lib
+
+
+def launch(entry: str, *args) -> None:
+    """Call C entry `entry` on PyTorch's current stream (appended as the
+    last argument); tensors pass as their data pointers. Raises if the
+    launch failed."""
+    source, argtypes = SIGNATURES[entry]
+    fn = getattr(load(source), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    vals.append(torch.cuda.current_stream().cuda_stream)
+    check(fn(*vals), entry)
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+def require_cuda(*tensors: torch.Tensor, dtype=None) -> None:
+    """Raise unless every tensor is contiguous on one CUDA device (and of
+    `dtype`, when given): what the kernels' raw pointers assume."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"kernel input on {t.device}, expected {dev} (cuda)")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"kernel input dtype {t.dtype}, expected {dtype}")

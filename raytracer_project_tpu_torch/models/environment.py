@@ -1,0 +1,125 @@
+"""Environment lighting table (twin of
+raytracer_project_tpu/models/environment.py, subset).
+
+Modes: PHYSICAL_SUN (procedural sun-sky), HDR_MAP (equirect image) and
+SOLID_COLOR (environment.hpp:8-77, camera.hpp:828-925). The background
+itself is shaded inside the shade-advance kernel (ops/fused_step.py); this
+module holds the parameter table, its constructor and the astronomical
+sun model of the reference UI (main.cpp:822-893). Loading HDR files waits
+for the port's image reader.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.constants import PI
+from ..core.tree import to_device, unflatten
+
+PHYSICAL_SUN = 0
+HDR_MAP = 1
+SOLID_COLOR = 2
+
+
+class Environment(NamedTuple):
+    """Environment parameters (f32 tensors). hdr_image is an equirect
+    [H, W, 3] linear-radiance map, a 1x1 black placeholder when unused."""
+
+    background_color: torch.Tensor  # [3]
+    intensity: torch.Tensor         # []
+    hdr_image: torch.Tensor         # [H, W, 3]
+    hdri_rotation: torch.Tensor     # [] yaw, radians
+    hdri_tilt: torch.Tensor         # [] pitch, radians
+    hdri_roll: torch.Tensor         # [] roll, radians
+    sun_direction: torch.Tensor     # [3]
+    sun_color: torch.Tensor         # [3]
+    sun_intensity: torch.Tensor     # []
+    sun_size: torch.Tensor          # [] UI scale 0.1..10 (camera.hpp:914)
+
+    def to(self, device):
+        return to_device(self, device)
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def make_environment(
+    *,
+    background_color=(0.5, 0.7, 1.0),
+    intensity=1.0,
+    hdr_image=None,
+    hdri_rotation=0.0,
+    hdri_tilt=0.0,
+    hdri_roll=0.0,
+    sun_direction=(0.5, 0.8, 0.3),
+    sun_color=(1.0, 0.95, 0.9),
+    sun_intensity=5.0,
+    sun_size=1.0,
+) -> Environment:
+    if hdr_image is None:
+        hdr_image = np.zeros((1, 1, 3), np.float32)  # black fallback
+    return Environment(
+        background_color=_f32(background_color),
+        intensity=_f32(intensity),
+        hdr_image=_f32(hdr_image),
+        hdri_rotation=_f32(hdri_rotation),
+        hdri_tilt=_f32(hdri_tilt),
+        hdri_roll=_f32(hdri_roll),
+        sun_direction=_f32(sun_direction),
+        sun_color=_f32(sun_color),
+        sun_intensity=_f32(sun_intensity),
+        sun_size=_f32(sun_size),
+    )
+
+
+def environment_from_numpy(d: dict) -> Environment:
+    """Environment from a flat {field name: numpy array} dict."""
+    return unflatten(Environment, d)
+
+
+# Astronomical daylight (main.cpp:822-893), f32 like the reference.
+
+def solar_position(latitude_deg, day_of_year, hour):
+    """Solar (elevation, azimuth) in degrees (main.cpp:830-851)."""
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)
+    lat = torch.deg2rad(f32(latitude_deg))
+    decl = torch.deg2rad(
+        23.45 * torch.sin(torch.deg2rad(360.0 / 365.0 * (f32(day_of_year) - 81.0))))
+    hour_angle = torch.deg2rad(15.0 * (f32(hour) - 12.0))
+    sin_elev = (torch.sin(lat) * torch.sin(decl)
+                + torch.cos(lat) * torch.cos(decl) * torch.cos(hour_angle))
+    elev = torch.arcsin(torch.clamp(sin_elev, -1.0, 1.0))
+    cos_az = (torch.sin(decl) - torch.sin(elev) * torch.sin(lat)) / torch.clamp(
+        torch.cos(elev) * torch.cos(lat), min=1e-6)
+    az = torch.arccos(torch.clamp(cos_az, -1.0, 1.0))
+    az = torch.where(hour_angle > 0.0, 2.0 * PI - az, az)
+    return torch.rad2deg(elev), torch.rad2deg(az)
+
+
+def direction_from_spherical(elevation_deg, azimuth_deg):
+    """Spherical (degrees) -> unit direction, y-up (common.hpp:94-103)."""
+    phi = torch.deg2rad(azimuth_deg)
+    theta = torch.deg2rad(90.0 - elevation_deg)
+    sin_t = torch.sin(theta)
+    return torch.stack(
+        [sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi)], dim=-1)
+
+
+def sun_direction_from_time(latitude_deg, day_of_year, hour):
+    """Sun direction via the astronomical model (main.cpp:853)."""
+    elev, az = solar_position(latitude_deg, day_of_year, hour)
+    return direction_from_spherical(elev, az)
+
+
+def auto_sun_color(elevation_deg):
+    """Altitude-keyed warm shift (main.cpp:855-871)."""
+    e = torch.as_tensor(elevation_deg, dtype=torch.float32)
+    t = torch.clamp(e / 60.0, 0.0, 1.0)
+    low = torch.tensor([1.0, 0.45, 0.15])
+    high = torch.tensor([1.0, 0.95, 0.9])
+    color = low * (1.0 - t[..., None]) + high * t[..., None]
+    return torch.where(e[..., None] < 0.0, torch.tensor([0.8, 0.35, 0.25]), color)

@@ -1,0 +1,144 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs an NVIDIA GPU and skips elsewhere. The file imports
+neither JAX nor the reference package, so it also runs on a machine that
+has only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raytracer_project_tpu_torch.core import rng
+from raytracer_project_tpu_torch.models import camera as tcam
+from raytracer_project_tpu_torch.models import environment as tenv
+from raytracer_project_tpu_torch.models import presets
+from raytracer_project_tpu_torch.ops import closest_hit as k1
+from raytracer_project_tpu_torch.ops import fused_step as fs
+from raytracer_project_tpu_torch.ops import integrator
+
+torch.set_num_threads(2)
+
+CAM_KW = dict(vfov=30.0, lookfrom=(12.0, 2.5, 6.0), lookat=(0.0, 1.0, 0.0))
+HDR = np.linspace(0, 2, 8 * 16 * 3, dtype=np.float32).reshape(8, 16, 3)
+ENV_KW = dict(sun_direction=(0.4, 0.7, 0.2), sun_intensity=6.0,
+              hdr_image=HDR, hdri_rotation=0.5, hdri_tilt=0.2, hdri_roll=0.1)
+INT_ROWS = (fs._RO_HIT, fs._RO_FRONT, fs._RO_MTYPE, fs._RO_GU, fs._RO_GV,
+            fs._RO_HASB, fs._RO_TEXROW, fs._RO_BUMPROW, fs._RO_ENVROW)
+P = 65536
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def inputs(cuda):
+    """Showcase tables on the card and a batch of camera-like and
+    bounce-like rays made with numpy from a seed."""
+    scene = presets.showcase_scene().to(cuda)
+    env = tenv.make_environment(**ENV_KW)
+    r = np.random.default_rng(0)
+    m = P // 2
+    o = np.concatenate([np.tile(np.float32([12.0, 2.5, 6.0]), (m, 1)),
+                        np.stack([r.uniform(-8, 8, m), r.uniform(0.05, 3, m),
+                                  r.uniform(-8, 8, m)], 1)])
+    look = np.stack([r.uniform(-4, 4, m), r.uniform(-1, 3, m),
+                     r.uniform(-4, 4, m)], 1)
+    d = np.concatenate([look - o[:m], r.normal(size=(m, 3))])
+    od = torch.as_tensor(np.ascontiguousarray(
+        np.concatenate([o.T, d.T]), dtype=np.float32)).to(cuda)
+    return scene, env, od
+
+
+@pytest.mark.cuda
+def test_closest_hit_kernel_matches_plain(inputs):
+    scene, env, od = inputs
+    tables = fs.build_tables(scene, env.to(od.device), tenv.PHYSICAL_SUN)
+    tk, ik, yk = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
+                                tables.counts)
+    tp, ip, yp = k1.closest_hit_plain(od, 1e-3, tables.coeffs, tables.counts)
+    hk, hp = tk < 1e30, tp < 1e30
+    assert int((hk != hp).sum()) <= P // 100
+    both = hk & hp
+    same = both & (ik == ip) & (yk == yp)
+    assert int((both & ~same).sum()) <= P // 40
+    rel = ((tk - tp).abs() / tp.abs().clamp(min=1e-3))[same]
+    assert float((rel > 5e-3).float().mean()) <= 0.03
+    assert float(rel.max()) <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_mode", [tenv.PHYSICAL_SUN, tenv.HDR_MAP])
+def test_decode_kernel_matches_plain(inputs, env_mode):
+    scene, env, od = inputs
+    tables = fs.build_tables(scene, env.to(od.device), env_mode)
+    aparams = fs._aparams(env, od.device)
+    hit = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds, tables.counts)
+    out = fs.decode(tables, od, *hit, aparams).cpu()
+    ref = fs.decode_plain(tables, od, *hit, aparams).cpu()
+    for k in range(fs._RO_ROWS):
+        if k in INT_ROWS:
+            assert torch.equal(out[k], ref[k]), k
+        else:
+            torch.testing.assert_close(out[k], ref[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_mode", [tenv.PHYSICAL_SUN, tenv.SOLID_COLOR,
+                                      tenv.HDR_MAP])
+def test_shade_advance_kernel_matches_plain(inputs, env_mode):
+    """A random path state on real hits; next_work leaves less work than
+    there are free lanes, so the cap and the cross-block ranks both act."""
+    scene, env, od = inputs
+    dev = od.device
+    tables = fs.build_tables(scene, env.to(dev), env_mode)
+    hit = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds, tables.counts)
+    rec = fs.decode(tables, od, *hit, fs._aparams(env, dev))
+    r = np.random.default_rng(1)
+    state_f = torch.cat([od, torch.as_tensor(
+        r.uniform(0, 1.5, (6, P)).astype(np.float32)).to(dev)]).contiguous()
+    state_i = torch.as_tensor(np.stack([
+        (r.random(P) < 0.85), r.integers(0, 13, P), r.integers(0, 4, P),
+        r.integers(0, 800 * 450, P)]).astype(np.int32)).to(dev)
+    cam = tcam.make_camera(image_width=800, image_height=450, **CAM_KW)
+    sp = fs.StepParams(seed=rng.seed_from_int(7), sample_offset=2,
+                       n_pixels=800 * 450, width=800, total_work=800 * 450 * 4,
+                       max_depth=10, env_mode=env_mode)
+    args = (rec, state_f, state_i,
+            torch.tensor([sp.total_work - 9000], dtype=torch.int32, device=dev),
+            torch.tensor([11], dtype=torch.int64, device=dev),
+            fs._bparams(cam, env, dev), sp)
+    out = fs.shade_advance(tables, *args)
+    ref = fs.shade_advance_plain(tables, *args)
+    for k, (a, b) in enumerate(zip(out, ref)):
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(a, b), k
+    assert int(out[4]) == sp.total_work
+
+
+@pytest.mark.cuda
+def test_render_goes_through_the_kernels(cuda):
+    scene = presets.showcase_scene()
+    cam = tcam.make_camera(image_width=64, image_height=36, **CAM_KW)
+    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
+                                sun_intensity=6.0)
+    cfg = integrator.RenderConfig(width=64, height=36, samples_per_pixel=2,
+                                  use_albedo=False, use_normal=False,
+                                  use_z_depth=False)
+    for fn in (k1.closest_hit, fs.decode, fs.shade_advance):
+        fn.launches = 0
+    out, stats = integrator.render(scene, cam, env, 0, cfg, with_stats=True)
+    assert out["beauty"].device.type == "cuda"
+    assert all(fn.launches > 0 for fn in (k1.closest_hit, fs.decode,
+                                          fs.shade_advance))
+    assert stats["steps"] > 0 and stats["segments"] > 0
+    img = out["beauty"].cpu()
+    assert torch.isfinite(img).all() and img.max() > 0
