@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import vecmath
+
 MASK32 = 0xFFFFFFFF
 
 _C0 = 0x9E3779B9
@@ -38,6 +40,18 @@ class LaneRng(NamedTuple):
     pix: torch.Tensor
     samp: torch.Tensor
     ctx: object
+
+    def with_ctx(self, bounce: int, spec: int = 0) -> "LaneRng":
+        """Context of an absolute bounce index and the spec-pass flag:
+        (bounce << 1) | spec."""
+        return self._replace(ctx=((int(bounce) << 1) | int(spec)) & MASK32)
+
+
+def lane_rng(seed: int, pix, samp=0, ctx=0) -> LaneRng:
+    """LaneRng of the u32 seed for lanes (pix, samp); pix and samp are
+    tensors (or ints) of u32 values."""
+    pix = u32(pix)
+    return LaneRng(seed, pix, u32(samp).to(pix.device), ctx)
 
 
 def seed_from_int(k: int) -> int:
@@ -100,8 +114,14 @@ def draw_unit_vector_and_uniform_soa(lr: LaneRng, stream: int):
     a, b, c, _ = bits4(lr, stream)
     z = 1.0 - 2.0 * _u01(a)
     phi = TWO_PI * _u01(b)
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = vecmath.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     return (r * torch.cos(phi), r * torch.sin(phi), z), _u01(c)
+
+
+def draw_unit_vector_and_uniform(lr: LaneRng, stream: int):
+    """AoS form of the draw above: (unit vector [N, 3], uniform [N])."""
+    vec, u = draw_unit_vector_and_uniform_soa(lr, stream)
+    return torch.stack(vec, dim=-1), u
 
 
 def draw_camera(lr: LaneRng, stream: int = STREAM_CAMERA):
@@ -110,6 +130,6 @@ def draw_camera(lr: LaneRng, stream: int = STREAM_CAMERA):
     a, b, c, d = bits4(lr, stream)
     jx = _u01(a) - 0.5
     jy = _u01(b) - 0.5
-    r = torch.sqrt(_u01(c))
+    r = vecmath.sqrt(_u01(c))
     theta = TWO_PI * _u01(d)
     return (jx, jy), (r * torch.cos(theta), r * torch.sin(theta))

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .vecmath import sqrt
+
 
 def add(a, b):
     return a[0] + b[0], a[1] + b[1], a[2] + b[2]
@@ -54,7 +56,7 @@ def length_squared(a):
 
 
 def length(a):
-    return torch.sqrt(length_squared(a))
+    return sqrt(length_squared(a))
 
 
 _UNIT_EPS = 1e-12
@@ -65,7 +67,7 @@ def normalize(a):
     l2 = length_squared(a)
     eps2 = _UNIT_EPS * _UNIT_EPS
     inv = torch.where(l2 < eps2, 0.0,
-                      1.0 / torch.sqrt(torch.clamp(l2, min=eps2)))
+                      1.0 / sqrt(torch.clamp(l2, min=eps2)))
     return scale(a, inv)
 
 
@@ -83,7 +85,7 @@ def refract(uv, n, etai_over_etat):
     """Snell refraction of unit uv about n (vec3.hpp:209-213)."""
     cos_theta = torch.clamp(dot(neg(uv), n), max=1.0)
     perp = scale(add(uv, scale(n, cos_theta)), etai_over_etat)
-    par_len = -torch.sqrt(torch.abs(1.0 - length_squared(perp)))
+    par_len = -sqrt(torch.abs(1.0 - length_squared(perp)))
     return add(perp, scale(n, par_len))
 
 

@@ -3,7 +3,8 @@ raytracer_project_tpu/models/camera.py, subset).
 
 `make_camera` derives the frame on the host (camera.hpp:358-402);
 `generate_rays_soa` is the plain version of the camera-ray generation the
-shade-advance kernel repeats for respawned lanes (camera.hpp:784-794).
+shade-advance kernel repeats for respawned lanes (camera.hpp:784-794), and
+`generate_rays` the chunked integrator's AoS form.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import rng
+from ..core import rng, vecmath
 from ..core.constants import degrees_to_radians
 from ..core.tree import to_device, unflatten
 
@@ -122,3 +123,27 @@ def generate_rays_soa(cam: Camera, lr: rng.LaneRng, pixel_ids: torch.Tensor,
     o = tuple(c_[k] + r0 * u_[k] + r1 * v_[k] for k in range(3))
     d = tuple(p00[k] + px * du[k] + py * dv[k] - o[k] for k in range(3))
     return o, d
+
+
+def generate_rays(cam: Camera, lr: rng.LaneRng, pixel_ids: torch.Tensor,
+                  width: int):
+    """AoS camera rays of the chunked integrator: (origins [N, 3],
+    directions [N, 3]), the draws of generate_rays_soa with the roundings
+    of the reference's compiled AoS form, a + x * b -> fma(x, b, a)."""
+    (jx, jy), (r0, r1) = rng.draw_camera(lr)
+    ii, jj = pixel_rowcol_f32(pixel_ids, width)
+    px = (ii + jx)[:, None]
+    py = (jj + jy)[:, None]
+    fma = vecmath.fma
+    o = fma(r1[:, None], cam.defocus_disk_v,
+            fma(r0[:, None], cam.defocus_disk_u, cam.center))
+    d = fma(py, cam.pixel_delta_v, fma(px, cam.pixel_delta_u, cam.pixel00)) - o
+    return o, d
+
+
+def view_space_normal_color(cam: Camera, n):
+    """World normal [N, 3] -> [0, 1]-mapped view-space normal color
+    (camera.hpp:470-481)."""
+    n = vecmath.normalize(n)
+    return torch.stack([(vecmath.dot(n, b) + 1.0) * 0.5
+                        for b in (cam.u, cam.v, cam.w)], dim=-1)

@@ -1,8 +1,9 @@
 """Texture bank: padded image atlas + procedural checker (twin of
 raytracer_project_tpu/models/textures.py, builder subset).
 
-Sampling happens inside the decode kernel (ops/fused_step.py); this module
-holds the packed table and its host-side builder. Semantics follow
+The fused pool samples inside its kernels (ops/fused_step.py); the
+chunked integrator calls `sample` and `sample_bump_deltas` here. The module
+also holds the packed table and its host-side builder. Semantics follow
 texture.hpp:50-78 and :118-126 (nearest-neighbour, u wraps, v clamps,
 failed loads are cyan, the checker takes the parity of floored cells).
 """
@@ -48,6 +49,56 @@ class TextureBank(NamedTuple):
 
     def to(self, device):
         return to_device(self, device)
+
+
+_CYAN = (0.0, 1.0, 1.0)
+
+
+def _texel_ij(bank: TextureBank, tid, u, v):
+    """Nearest texel (i, j) of (u, v) in texture tid: u wraps, v clamps."""
+    w = bank.size[tid, 0]
+    h = bank.size[tid, 1]
+    uu = u - torch.floor(u)
+    i = torch.minimum(torch.clamp((uu * w).to(torch.int64), min=0),
+                      torch.clamp(w - 1, min=0))
+    j = torch.minimum(torch.clamp((v * h).to(torch.int64), min=0),
+                      torch.clamp(h - 1, min=0))
+    return i, j
+
+
+def sample(bank: TextureBank, tex_id, u, v, p, default):
+    """Texture colors f32[N, 3] (texture.hpp:50-78, :118-126): tex_id
+    i32[N], u, v f32[N], p f32[N, 3]; `default` [N, 3] where tex_id < 0
+    (the material's solid albedo)."""
+    tid = torch.clamp(tex_id, min=0).to(torch.int64)
+    kind = bank.kind[tid]
+    i, j = _texel_ij(bank, tid, u, v)
+    image_color = bank.data[tid, j, i]
+    cells = torch.floor(bank.checker_inv_scale[tid][:, None] * p)
+    cells = cells.to(torch.int64)
+    is_even = cells.sum(-1) % 2 == 0
+    checker = torch.where(is_even[:, None], bank.checker_even[tid],
+                          bank.checker_odd[tid])
+    color = torch.where((kind == KIND_IMAGE)[:, None], image_color, checker)
+    cyan = torch.tensor(_CYAN, dtype=color.dtype, device=color.device)
+    color = torch.where((kind == KIND_MISSING)[:, None], cyan, color)
+    return torch.where((tex_id < 0)[:, None], default, color)
+
+
+def sample_bump_deltas(bank: TextureBank, tex_id, u, v, delta: float):
+    """Finite-difference bump taps (h(u+delta, v) - h(u, v), h(u, v+delta)
+    - h(u, v)) of channel 0 from one texel load (material.hpp:40-48): the
+    difference is 0 when the offset tap stays in the texel, else the
+    precomputed neighbour delta. Returns (f_u, f_v) f32[N]; 0 where
+    tex_id < 0."""
+    tid = torch.clamp(tex_id, min=0).to(torch.int64)
+    i, j = _texel_ij(bank, tid, u, v)
+    g = bank.grad[tid, j, i]
+    i2, _ = _texel_ij(bank, tid, u + delta, v)
+    _, j2 = _texel_ij(bank, tid, u, v + delta)
+    has = tex_id >= 0
+    return (torch.where((i2 != i) & has, g[:, 0], 0.0),
+            torch.where((j2 != j) & has, g[:, 1], 0.0))
 
 
 class TextureBankBuilder:

@@ -1,5 +1,5 @@
 """Ray-primitive intersection (twin of raytracer_project_tpu/ops/intersect.py,
-subset the fused pool reaches).
+subset the fused pool and the chunked integrator reach).
 
   * `build_mm_tables`: per-primitive coefficient columns [16, G, C_pad]
     (feature, output, primitive) for the bilinear formulation of the
@@ -12,7 +12,10 @@ subset the fused pool reaches).
   * the three `*_mm` epilogues, shared by that plain version;
   * `intersect_brute`: the exact oracle (hittable_list.hpp:28-41);
   * `_packed_all` and the `_*_record_soa` decoders: the plain version of
-    the hit-record decode kernel (ops/fused_step.py).
+    the hit-record decode kernel (ops/fused_step.py);
+  * the chunked integrator's side: `ray_feature_rows`, `intersect_dispatch`
+    and `intersect` (K4 of ops/closest_hit.py), and `make_record` with its
+    AoS decoders `_*_record_from` ([N, 3] vectors, exact arcs).
 """
 
 from __future__ import annotations
@@ -43,6 +46,22 @@ class Hit(NamedTuple):
     prim_type: torch.Tensor  # i32 PRIM_SPHERE / PRIM_TRIANGLE / PRIM_BOX
     prim_idx: torch.Tensor   # i32 row in the per-type table
     hit: torch.Tensor        # bool
+
+
+class HitRecord(NamedTuple):
+    """Shading record of the closest hits (hittable.hpp:9-26); vectors are
+    f32[N, 3]."""
+
+    t: torch.Tensor           # f32[N]
+    p: torch.Tensor
+    normal: torch.Tensor      # front-face corrected
+    tangent: torch.Tensor
+    bitangent: torch.Tensor
+    front_face: torch.Tensor  # bool[N]
+    u: torch.Tensor           # f32[N]
+    v: torch.Tensor           # f32[N]
+    mat: torch.Tensor         # i64[N]
+    hit: torch.Tensor         # bool[N]
 
 
 class MMTables(NamedTuple):
@@ -397,11 +416,22 @@ _TRI_DEFAULT_ROW = _default_row(
 _BOX_DEFAULT_ROW = _default_row([1, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 0])
 
 
+def _f32(x):
+    return torch.as_tensor(x).to(torch.float32)
+
+
+def _box_packed(scene):
+    """[Nb, 13] f32: minv (9), trans (3), mat."""
+    b = scene.boxes
+    return torch.cat([_f32(b.minv), _f32(b.trans), _f32(b.mat)[:, None]],
+                     dim=1)
+
+
 def _packed_all(scene):
     """[Ns+Nt+Nb, 28] f32 shading rows: sphere center, radius, mat (cols
     0:5); triangle v0 e1 e2 n0 n1 n2 uv0 uv1 uv2 tangent mat (0:28); box
     minv trans mat (0:13)."""
-    f32 = lambda x: torch.as_tensor(x).to(torch.float32)
+    f32 = _f32
     s, t = scene.spheres, scene.triangles
     parts = [torch.cat([f32(s.center), f32(s.radius)[:, None],
                         f32(s.mat)[:, None]], dim=1),
@@ -409,9 +439,7 @@ def _packed_all(scene):
                         f32(t.n2), f32(t.uv0), f32(t.uv1), f32(t.uv2),
                         f32(t.tangent), f32(t.mat)[:, None]], dim=1)]
     if scene.boxes is not None:
-        b = scene.boxes
-        parts.append(torch.cat([f32(b.minv), f32(b.trans),
-                                f32(b.mat)[:, None]], dim=1))
+        parts.append(_box_packed(scene))
     parts = [torch.nn.functional.pad(p, (0, _PACK_COLS - p.shape[1]))
              for p in parts]
     return torch.cat(parts, dim=0)
@@ -510,3 +538,176 @@ def _box_record_soa(g, o, d, t):
     tangent = soa.normalize(tuple(tx * g[k] + tz * g[6 + k] for k in range(3)))
     bitangent = soa.cross(normal, tangent)
     return p, normal, tangent, bitangent, front, u, v, g[12]
+
+
+# --- the chunked integrator's record decode (AoS) ----------------------------
+
+def _sphere_record_from(g, o, d, t):
+    """Sphere shading data (sphere.hpp:40-79); g = packed rows [N, 28].
+    Exact arcs for the uv, unlike the decode kernel's polynomial ones."""
+    center = g[:, 0:3]
+    radius = torch.clamp(torch.abs(g[:, 3]), min=1e-6)
+    p = vecmath.fma(t[:, None], d, o)
+    outward = (p - center) / radius[:, None]
+    front = vecmath.dot(d, outward) < 0.0
+    normal = torch.where(front[:, None], outward, -outward)
+    theta = vecmath.safe_arccos(-outward[:, 1])
+    phi = torch.atan2(-outward[:, 2], outward[:, 0]) + PI
+    u = phi / (2.0 * PI)
+    v = theta / PI
+    # world-up x n, and (0, 0, 1) x n near the poles (sphere.hpp:50-59).
+    up = normal.new_tensor([0.0, 1.0, 0.0]).expand_as(normal)
+    alt = normal.new_tensor([0.0, 0.0, 1.0]).expand_as(normal)
+    tangent = vecmath.cross(up, normal)
+    degenerate = vecmath.length_squared(tangent) < 1e-3
+    tangent = torch.where(degenerate[:, None], vecmath.cross(alt, normal),
+                          tangent)
+    tangent = vecmath.normalize(tangent)
+    bitangent = vecmath.cross(normal, tangent)
+    return p, normal, tangent, bitangent, front, u, v, g[:, 4]
+
+
+def _triangle_record_from(g, o, d, t):
+    """Triangle shading data: barycentric-smooth normal, interpolated uv
+    and the face tangent (triangle.hpp:56-79)."""
+    v0, e1, e2 = g[:, 0:3], g[:, 3:6], g[:, 6:9]
+    n0, n1, n2 = g[:, 9:12], g[:, 12:15], g[:, 15:18]
+    uv0, uv1, uv2 = g[:, 18:20], g[:, 20:22], g[:, 22:24]
+    tangent = g[:, 24:27]
+    p = vecmath.fma(t[:, None], d, o)
+    geo_n = vecmath.cross(e1, e2)
+    area_sq = torch.clamp(vecmath.length_squared(geo_n), min=1e-24)
+    rel = p - v0
+    c0 = vecmath.cross(e1, rel)
+    c2 = vecmath.cross(rel, e2)
+    u = vecmath.dot(geo_n, c2) / area_sq
+    v = vecmath.dot(geo_n, c0) / area_sq
+    w = 1.0 - u - v
+    smooth = vecmath.normalize(w[:, None] * n0 + u[:, None] * n1
+                               + v[:, None] * n2)
+    front = vecmath.dot(d, smooth) < 0.0
+    normal = torch.where(front[:, None], smooth, -smooth)
+    uv = w[:, None] * uv0 + u[:, None] * uv1 + v[:, None] * uv2
+    bitangent = vecmath.cross(normal, tangent)
+    return p, normal, tangent, bitangent, front, uv[:, 0], uv[:, 1], g[:, 27]
+
+
+# Per-face u and v axes and local tangents of the canonical [-1, 1]^3 cube
+# (cube.hpp:100-142), rows indexed by face = axis * 2 + (sign > 0).
+_BOX_FACE_U = ((0., 0., 1.), (0., 0., 1.), (1., 0., 0.), (1., 0., 0.),
+               (-1., 0., 0.), (1., 0., 0.))
+_BOX_FACE_V = ((0., 1., 0.), (0., 1., 0.), (0., 0., 1.), (0., 0., 1.),
+               (0., 1., 0.), (0., 1., 0.))
+_BOX_FACE_TAN = ((0., 0., 1.), (0., 0., -1.), (1., 0., 0.), (-1., 0., 0.),
+                 (-1., 0., 0.), (1., 0., 0.))
+
+
+def _box_record_from(g, o, d, t):
+    """Box shading data: face normal, uv and tangent from the local hit
+    point (cube.hpp:100-142). Normals and tangents transform by the rows
+    of the world -> local matrix (its inverse transpose)."""
+    m = g[:, 0:9].reshape(-1, 3, 3)
+    p = vecmath.fma(t[:, None], d, o)
+    l = (m * p[:, None, :]).sum(-1) + g[:, 9:12]
+    axis = torch.argmax(torch.abs(l), dim=-1)   # first maximum on ties
+    rows = torch.arange(l.shape[0], device=l.device)
+    sign = torch.sign(l[rows, axis])
+    face = axis * 2 + (sign > 0.0).to(torch.int64)
+    outward = vecmath.normalize(sign[:, None] * m[rows, axis])
+    front = vecmath.dot(d, outward) < 0.0
+    normal = torch.where(front[:, None], outward, -outward)
+    table = lambda rows_: g.new_tensor(rows_)[face]
+    u = vecmath.dot(l, table(_BOX_FACE_U)) * 0.5 + 0.5
+    v = vecmath.dot(l, table(_BOX_FACE_V)) * 0.5 + 0.5
+    tangent = vecmath.normalize((table(_BOX_FACE_TAN)[:, :, None] * m).sum(1))
+    bitangent = vecmath.cross(normal, tangent)
+    return p, normal, tangent, bitangent, front, u, v, g[:, 12]
+
+
+def make_record(scene, o, d, hit: Hit) -> HitRecord:
+    """Shading records of the closest hits: one row gather from the packed
+    table, then each primitive type's decoder on its own lanes (the other
+    lanes see a benign default row). Misses decode with t = 1 and are
+    masked by the caller."""
+    t_safe = torch.where(hit.hit, hit.t, 1.0)
+    ns, nt = scene.spheres.count, scene.triangles.count
+    table = _packed_all(scene)
+    base = torch.where(hit.prim_type == PRIM_TRIANGLE, ns,
+                       torch.where(hit.prim_type == PRIM_BOX, ns + nt, 0))
+    g = table[torch.clamp(hit.prim_idx + base, 0, table.shape[0] - 1).long()]
+
+    def decode(fn, ptype, default):
+        mask = (hit.prim_type == ptype)[:, None]
+        return fn(torch.where(mask, g, g.new_tensor(default)), o, d, t_safe)
+
+    def sel(mask, a, b):
+        return torch.where(mask[:, None] if a.dim() == 2 else mask, b, a)
+
+    is_tri = hit.prim_type == PRIM_TRIANGLE
+    sp = decode(_sphere_record_from, PRIM_SPHERE, _SPHERE_DEFAULT_ROW)
+    tp = decode(_triangle_record_from, PRIM_TRIANGLE, _TRI_DEFAULT_ROW)
+    parts = tuple(sel(is_tri, a, b) for a, b in zip(sp, tp))
+    if scene.boxes is not None:
+        is_box = hit.prim_type == PRIM_BOX
+        bp = decode(_box_record_from, PRIM_BOX, _BOX_DEFAULT_ROW)
+        parts = tuple(sel(is_box, a, b) for a, b in zip(parts, bp))
+    p, normal, tangent, bitangent, front, u, v, mat = parts
+    return HitRecord(t=hit.t, p=p, normal=normal, tangent=tangent,
+                     bitangent=bitangent, front_face=front, u=u, v=v,
+                     mat=mat.long(), hit=hit.hit)
+
+
+# --- closest-hit routing of the chunked integrator ---------------------------
+
+# Scenes without coefficient tables from this many primitives on would go
+# to the BVH (the reference's BVH_MIN_PRIMS).
+BVH_MIN_PRIMS = 8192
+
+
+def ray_feature_rows(o, d):
+    """[16, N] ray features of o, d f32[N, 3], with the roundings of the
+    reference's compiled AoS features: o x d with one fused multiply-add
+    per component, each 3-term dot as fma(a2, b2, fma(a1, b1, a0 * b0))
+    (where `ray_features` above has fma(a2, b2, fma(a0, b0, a1 * b1)))."""
+    m = tuple(vecmath.fma(o[:, i], d[:, j], -(o[:, j] * d[:, i]))
+              for i, j in ((1, 2), (2, 0), (0, 1)))
+    od, oo, dd = (vecmath.fma(a[:, 2], b[:, 2],
+                              vecmath.fma(a[:, 1], b[:, 1], a[:, 0] * b[:, 0]))
+                  for a, b in ((o, d), (o, o), (d, d)))
+    one = torch.ones_like(od)
+    zero = torch.zeros_like(od)
+    return torch.stack([d[:, 0], d[:, 1], d[:, 2], o[:, 0], o[:, 1], o[:, 2],
+                        m[0], m[1], m[2], od, oo, one, dd, zero, zero, zero])
+
+
+def intersect_dispatch(scene, tmin) -> str:
+    """The closest-hit route: "k4" (the prebuilt-feature closest hit of
+    ops/closest_hit.py: its kernel on CUDA tensors, its plain version on
+    CPU tensors) when the scene has coefficient tables, else "bvh" for
+    scenes of BVH_MIN_PRIMS primitives or more, else "brute"."""
+    if scene.mm is not None:
+        return "k4"
+    if scene.primitive_count >= BVH_MIN_PRIMS:
+        return "bvh"
+    return "brute"
+
+
+def intersect(scene, o, d, tmin: float) -> Hit:
+    """Closest hits of the rays o, d f32[N, 3] beyond tmin."""
+    path = intersect_dispatch(scene, tmin)
+    if path == "bvh":
+        raise NotImplementedError(
+            "BVH traversal is not ported yet (ROADMAP queue 1 item 4: BVH)")
+    if path == "brute":
+        return intersect_brute(scene, o, d, tmin)
+    from . import closest_hit
+
+    mm = scene.mm
+    n_boxes = scene.boxes.count if scene.boxes is not None else 0
+    t, idx, typ = closest_hit.closest_hit_feats(
+        ray_feature_rows(o, d).contiguous(), tmin,
+        (mm.sphere_coeff, mm.tri_coeff, mm.box_coeff),
+        tuple(closest_hit.coarsen_bounds(b).contiguous()
+              for b in (mm.sphere_bounds, mm.tri_bounds, mm.box_bounds)),
+        (scene.spheres.count, scene.triangles.count, n_boxes))
+    return Hit(t=t, prim_type=typ, prim_idx=idx, hit=t < T_MAX)

@@ -4,8 +4,9 @@
 The port has one pool engine, the fused step (ops/fused_step.py). Renders
 whose work exceeds the fused work-id cap (2^24 lane decodes in f32) are
 split into sample chunks; lane RNG streams are (pixel, sample)-keyed, so
-the chunk sums equal one oversized call's. The unfused pool waits
-(ROADMAP queue 1).
+the chunk sums equal one oversized call's. The chunked integrator
+(RenderConfig(wavefront=False), ops/integrator.py) is the other engine;
+the unfused pool waits for pixel windows (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ from raytracer_project_tpu_torch.models import presets
 from raytracer_project_tpu_torch.ops import closest_hit as k1
 from raytracer_project_tpu_torch.ops import fused_step as fs
 from raytracer_project_tpu_torch.ops import integrator
+from raytracer_project_tpu_torch.ops import intersect
 
 torch.set_num_threads(2)
 
@@ -62,7 +63,12 @@ def test_closest_hit_kernel_matches_plain(inputs):
     tables = fs.build_tables(scene, env.to(od.device), tenv.PHYSICAL_SUN)
     tk, ik, yk = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
                                 tables.counts)
-    tp, ip, yp = k1.closest_hit_plain(od, 1e-3, tables.coeffs, tables.counts)
+    _hit_budgets(tk, ik, yk, *k1.closest_hit_plain(od, 1e-3, tables.coeffs,
+                                                   tables.counts))
+
+
+def _hit_budgets(tk, ik, yk, tp, ip, yp):
+    """The reference's closest-hit agreement budgets (utils/smoke.py:351-359)."""
     hk, hp = tk < 1e30, tp < 1e30
     assert int((hk != hp).sum()) <= P // 100
     both = hk & hp
@@ -71,6 +77,23 @@ def test_closest_hit_kernel_matches_plain(inputs):
     rel = ((tk - tp).abs() / tp.abs().clamp(min=1e-3))[same]
     assert float((rel > 5e-3).float().mean()) <= 0.03
     assert float(rel.max()) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_closest_hit_feats_kernel_matches_plain(inputs):
+    """K4 on the same rays as K1, from their prebuilt feature rows: the
+    same budgets against its plain version, and against K1."""
+    scene, env, od = inputs
+    tables = fs.build_tables(scene, env.to(od.device), tenv.PHYSICAL_SUN)
+    feats = intersect.ray_feature_rows(od[:3].T, od[3:].T).contiguous()
+    k1.closest_hit_feats.launches = 0
+    out = k1.closest_hit_feats(feats, 1e-3, tables.coeffs, tables.bounds,
+                               tables.counts)
+    assert k1.closest_hit_feats.launches == 1
+    ref = k1.closest_hit_feats_plain(feats, 1e-3, tables.coeffs, tables.counts)
+    _hit_budgets(*out, *ref)
+    _hit_budgets(*out, *k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
+                                       tables.counts))
 
 
 @pytest.mark.cuda
@@ -87,6 +110,23 @@ def test_decode_kernel_matches_plain(inputs, env_mode):
             assert torch.equal(out[k], ref[k]), k
         else:
             torch.testing.assert_close(out[k], ref[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_closest_hit_feats_kernel_matches_plain(inputs):
+    """K4 on the same rays as K1, from their prebuilt feature rows: the
+    same budgets against its plain version, and against K1."""
+    scene, env, od = inputs
+    tables = fs.build_tables(scene, env.to(od.device), tenv.PHYSICAL_SUN)
+    feats = intersect.ray_feature_rows(od[:3].T, od[3:].T).contiguous()
+    k1.closest_hit_feats.launches = 0
+    out = k1.closest_hit_feats(feats, 1e-3, tables.coeffs, tables.bounds,
+                               tables.counts)
+    assert k1.closest_hit_feats.launches == 1
+    ref = k1.closest_hit_feats_plain(feats, 1e-3, tables.coeffs, tables.counts)
+    _hit_budgets(*out, *ref)
+    _hit_budgets(*out, *k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
+                                       tables.counts))
 
 
 @pytest.mark.cuda
@@ -142,3 +182,30 @@ def test_render_goes_through_the_kernels(cuda):
     assert stats["steps"] > 0 and stats["segments"] > 0
     img = out["beauty"].cpu()
     assert torch.isfinite(img).all() and img.max() > 0
+
+
+@pytest.mark.cuda
+def test_chunked_render_goes_through_k4(cuda, monkeypatch):
+    """The chunked integrator on the card launches K4 for every closest hit
+    and never runs a plain version; all six buffers come back finite."""
+    plain_calls = []
+    for mod, name in ((k1, "closest_hit_plain"), (k1, "closest_hit_feats_plain"),
+                      (fs, "decode_plain"), (fs, "shade_advance_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                            plain_calls.append(_n))
+    scene = presets.showcase_scene()
+    cam = tcam.make_camera(image_width=32, image_height=18, **CAM_KW)
+    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
+                                sun_intensity=6.0)
+    cfg = integrator.RenderConfig(width=32, height=18, samples_per_pixel=2,
+                                  use_reflection=True, use_refraction=True,
+                                  wavefront=False)
+    k1.closest_hit_feats.launches = 0
+    out, stats = integrator.render(scene, cam, env, 0, cfg, with_stats=True)
+    assert not plain_calls
+    assert k1.closest_hit_feats.launches > 2
+    assert stats["segments"] > 2 * 32 * 18
+    for name, img in out.items():
+        assert img.device.type == "cuda" and img.shape == (18, 32, 3), name
+        assert torch.isfinite(img).all(), name
+    assert out["beauty"].max() > 0

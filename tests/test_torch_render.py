@@ -21,6 +21,7 @@ from raytracer_project_tpu.ops import integrator as jint
 from raytracer_project_tpu_torch.models import camera as tcam
 from raytracer_project_tpu_torch.models import environment as tenv
 from raytracer_project_tpu_torch.models import presets as tpresets
+from raytracer_project_tpu_torch.models import scene as tscene
 from raytracer_project_tpu_torch.ops import fused_step as tfs
 from raytracer_project_tpu_torch.ops import integrator as tint
 from raytracer_project_tpu_torch.ops import wavefront as twf
@@ -125,13 +126,19 @@ def test_render_defaults_to_cuda(scene):
 
 
 def test_out_of_slice_features_raise(scene):
+    """What stays out of the port: AOVs and split passes on the fused pool,
+    the differentiable mode (on either engine), fog and the BVH."""
     cam = tcam.make_camera(image_width=8, image_height=4, **CAM_KW)
     env = tenv.make_environment(**ENV_KW)
-    for kw in (dict(use_albedo=True), dict(use_reflection=True),
-               dict(differentiable=True), dict(wavefront=False)):
+    for kw in (dict(use_albedo=True), dict(use_normal=True),
+               dict(use_z_depth=True), dict(use_reflection=True),
+               dict(use_refraction=True), dict(differentiable=True),
+               dict(differentiable=True, wavefront=False)):
         cfg = dataclasses.replace(_cfg(8, 4, 1), **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tint.render(scene, cam, env, 0, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tscene.SceneBuilder().add_fog_sphere((0.0, 0.0, 0.0), 1.0, 0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpresets.showcase_scene(with_bvh=True)
 
