@@ -26,6 +26,18 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
   6. chunked full   the chunked path at full size: 800x450 @ 32 spp, depth
                10, the AOVs and both split passes on, with K4's launches
                read around it, and a profile of a 4 spp render;
+  7. k3 features   K3's variant with fog, every AOV and both split passes
+               against its plain version at 131,072 lanes (the fog
+               showcase's camera rays with every other lane a spec lane,
+               and one step of them), timed, with its byte bound;
+  8. features smoke  the fog showcase at 64x36 @ 4 spp with every AOV and
+               both passes through integrator.render against the
+               reference's three `smoke_features_*` CPU goldens;
+  9. features full   the fused path with every feature at full size:
+               800x450 @ 32 spp, depth 10, showcase_scene(use_fog=True),
+               all six buffers, with the launch counts read around it, a
+               profile, and the albedo AOV against a first-hit chunked
+               render of the same frame;
 then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 device JSON line last. Takes no arguments and always runs every phase.
 Exits non-zero without a CUDA device, and outside a checkout of the repo.
@@ -56,6 +68,7 @@ SLEEP_CYCLES = 200_000_000
 EPILOGUE_OPS = (15, 12, 35)
 # Kernels each path launches (the counters of _counters()).
 FUSED_KERNELS = ("closest_hit", "decode", "shade_advance")
+FEATURES_KERNELS = ("closest_hit", "decode", "shade_advance_features")
 CHUNKED_KERNELS = ("closest_hit_feats",)
 _T0 = time.perf_counter()
 
@@ -440,22 +453,25 @@ def phase_k4(results: dict) -> None:
 # --- phases 3 and 4 -----------------------------------------------------------
 
 def _counters():
+    """Kernel name -> (wrapper, attribute holding its launch count)."""
     from raytracer_project_tpu_torch.ops import closest_hit as k1
     from raytracer_project_tpu_torch.ops import fused_step as fs
 
-    return {"closest_hit": k1.closest_hit, "decode": fs.decode,
-            "shade_advance": fs.shade_advance,
-            "closest_hit_feats": k1.closest_hit_feats}
+    return {"closest_hit": (k1.closest_hit, "launches"),
+            "decode": (fs.decode, "launches"),
+            "shade_advance": (fs.shade_advance, "launches"),
+            "shade_advance_features": (fs.shade_advance, "features_launches"),
+            "closest_hit_feats": (k1.closest_hit_feats, "launches")}
 
 
 def _reset_counters():
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _launches(names) -> dict:
     counters = _counters()
-    return {k: counters[k].launches for k in names}
+    return {k: getattr(*counters[k]) for k in names}
 
 
 class _PlainCallCounter:
@@ -485,7 +501,7 @@ class _PlainCallCounter:
             setattr(m, a, f)
 
 
-def _showcase(width, height):
+def _showcase(width, height, **scene_kw):
     import torch
 
     from raytracer_project_tpu_torch.models import camera as tcam
@@ -493,7 +509,7 @@ def _showcase(width, height):
     from raytracer_project_tpu_torch.models import presets
 
     dev = torch.device("cuda")
-    return (presets.showcase_scene().to(dev),
+    return (presets.showcase_scene(**scene_kw).to(dev),
             tcam.make_camera(image_width=width, image_height=height, **CAM_KW),
             tenv.make_environment(**ENV_KW))
 
@@ -707,6 +723,172 @@ def phase_chunked_full(results: dict) -> None:
     _profile("800x450@4spp chunked", inputs, _chunked_cfg(800, 450, 4))
 
 
+# --- phases 7-9: the fused pool with every feature ---------------------------
+
+def phase_k3_features(results: dict) -> None:
+    """K3's variant with fog, the three AOVs and both split passes, against
+    its plain version at the main path's 131,072 lanes: the fog showcase's
+    camera rays of the 800x450 @ 32 spp render with every other lane a spec
+    lane (so bounce-0 routing and AOVs act), and the state one plain step
+    later (bounce 1, with routing flags and first-hit attenuations set)."""
+    import torch
+
+    from raytracer_project_tpu_torch.core import rng
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.ops import fused_step as fs
+
+    dev = torch.device("cuda")
+    scene, cam, env = _showcase(800, 450, use_fog=True)
+    tables = fs.build_tables(scene, env, tenv.PHYSICAL_SUN)
+    aparams = fs._aparams(env, dev)
+    bparams = fs._bparams(cam, env, dev)
+    n = 800 * 450
+    n_beauty = n * 23
+    sp = fs.StepParams(
+        seed=rng.seed_from_int(0), sample_offset=0, n_pixels=n, width=800,
+        total_work=2 * n_beauty, max_depth=10, env_mode=tenv.PHYSICAL_SUN,
+        aux=32, z_max=50.0, aovs=fs.AOVS, use_reflection=True,
+        use_refraction=True, n_beauty=n_beauty,
+        n_volumes=scene.volumes.count)
+    w = torch.arange(P_MAIN, device=dev)
+    li = (w // 2 % n).to(torch.int32)
+    samp = (w // 2 // n).to(torch.int32)
+    spec = (w % 2).to(torch.int32)
+    o, d = tcam.generate_rays_soa(cam.to(dev), rng.LaneRng(
+        sp.seed, rng.u32(li), rng.u32(samp), 0), li, 800)
+    ones = torch.ones(P_MAIN, device=dev)
+    state_f = torch.stack([*o, *d, ones, ones, ones, 0 * ones, 0 * ones,
+                           0 * ones, ones, ones, ones]).contiguous()
+    state_i = torch.stack([torch.ones_like(li), torch.zeros_like(li), samp, li,
+                           spec, 0 * spec, 0 * spec]).contiguous()
+    next_work = torch.tensor([P_MAIN], dtype=torch.int32, device=dev)
+    segments = torch.zeros(1, dtype=torch.int64, device=dev)
+    states = {"camera": (state_f, state_i)}
+    rec0 = fs.trace_decode(tables, state_f[:6].contiguous(), aparams)
+    step1 = fs.shade_advance_plain(tables, rec0, state_f, state_i, next_work,
+                                   segments, bparams, sp)
+    states["bounce"] = (step1[0].contiguous(), step1[1].contiguous())
+    err, flips = 0.0, 0
+    for name, (sf, si) in states.items():
+        rec = fs.trace_decode(tables, sf[:6].contiguous(), aparams)
+        args = (rec, sf, si, next_work, segments, bparams, sp)
+        out = fs.shade_advance(tables, *args)
+        ref = fs.shade_advance_plain(tables, *args)
+        torch.cuda.synchronize()
+        bad = torch.zeros(P_MAIN, dtype=torch.bool, device=dev)
+        for a, b in zip(out[:4], ref[:4]):
+            if a.dtype.is_floating_point:
+                close = torch.isclose(a, b, rtol=1e-5, atol=1e-5).all(0)
+                bad |= ~close
+                err = max(err, float((a - b).abs()[:, close].max()))
+            else:
+                bad |= (a != b).any(0)
+        n_bad = int(bad.sum())
+        flips = max(flips, n_bad)
+        lanes = torch.nonzero(bad).flatten()[:8].tolist()
+        log(f"  K3 features ({name}): spec lanes {int((si[4] > 0).sum())}, "
+            f"lanes that differ {n_bad} (budget {P_MAIN // 200}) {lanes}; "
+            f"next_work {int(out[4])} vs {int(ref[4])}, live {int(out[6])} "
+            f"vs {int(ref[6])}")
+        check(n_bad <= P_MAIN // 200, f"K3 features ({name}): {n_bad} lanes")
+        check(int(out[5]) == int(ref[5]), "K3 features: segment count")
+    rec1 = fs.trace_decode(tables, states["bounce"][0][:6].contiguous(), aparams)
+    args = (rec1, *states["bounce"], next_work, segments, bparams, sp)
+    t_k3 = time_ms("K3 features", lambda: fs.shade_advance(tables, *args))
+    t_k3p = time_ms("K3 features plain",
+                    lambda: fs.shade_advance_plain(tables, *args), rounds=3)
+    n_c, n_t = fs.output_rows(sp)
+    nf, ni = fs.state_rows(sp)
+    # Record rows, state in and out, texel words, contributions, targets.
+    nbytes = P_MAIN * 4 * (fs._RO_ROWS + 2 * (nf + ni) + 6 + n_c + n_t)
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    results["shade_advance_features"] = dict(
+        name="shade_advance_features", route="cuda",
+        source="raytracer_project_tpu_torch/csrc/shade_advance.cu",
+        replaces="raytracer_project_tpu/ops/fused_step.py:669",
+        max_abs_err=err, ms=t_k3, plain_ms=t_k3p, bound_ms=bound,
+        bound_by="bytes", library_ms=None)
+    log(f"  shade_advance_features: {t_k3:.4f} ms/launch, plain {t_k3p:.4f} "
+        f"ms, bound {bound:.4f} ms (bytes, {nbytes // P_MAIN} B/lane), "
+        f"most lanes that differ {flips}")
+
+
+def _features_cfg(width, height, spp, **kw):
+    from raytracer_project_tpu_torch.ops import integrator
+
+    return integrator.RenderConfig(
+        width=width, height=height, samples_per_pixel=spp, max_depth=10,
+        use_reflection=True, use_refraction=True, **kw)
+
+
+def phase_features_smoke() -> None:
+    """The reference's fused-features stage on the card (utils/smoke.py:
+    241-292) against its CPU goldens, under the cross-backend budgets."""
+    import numpy as np
+
+    from raytracer_project_tpu_torch.ops import integrator
+
+    inputs = _showcase(64, 36, use_fog=True, fog_density=0.02)
+    _reset_counters()
+    with _PlainCallCounter() as plain:
+        out = integrator.render(*inputs, 0, _features_cfg(64, 36, 4))
+        imgs = {k: v.cpu().numpy() for k, v in out.items()}
+    launches = _launches(FEATURES_KERNELS)
+    log(f"features smoke: 64x36@4spp fog, AOVs, passes: launches {launches}, "
+        f"plain calls {plain.calls}")
+    check(all(v > 0 for v in launches.values()), "a kernel was not launched")
+    check(plain.calls == 0, "a plain version ran during the CUDA render")
+    for name in ("beauty", "albedo", "reflection"):
+        golden = np.load(os.path.join(
+            REPO, "tests", "goldens", f"smoke_features_{name}_64x36.npz"))["beauty"]
+        check(imgs[name].max() > 0, f"features smoke {name} black")
+        _image_agree(f"features {name} vs CPU golden", imgs[name], golden)
+
+
+def phase_features_full(results: dict) -> None:
+    """800x450 @ 32 spp, depth 10, fog, the three AOVs and both passes
+    through the fused pool (two sample chunks of 23 and 9 spp, with the spec
+    lanes twice the work of beauty alone)."""
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch.ops import integrator
+
+    inputs = _showcase(800, 450, use_fog=True)
+    integrator.render(*inputs, 0, _features_cfg(800, 450, 2))   # warm-up
+    _reset_counters()
+    torch.cuda.synchronize()
+    with _PlainCallCounter() as plain:
+        t0 = time.perf_counter()
+        out, stats = integrator.render(*inputs, 1, _features_cfg(800, 450, 32),
+                                       with_stats=True)
+        imgs = {k: v.cpu().numpy() for k, v in out.items()}
+        wall = time.perf_counter() - t0
+    launches = _launches(FEATURES_KERNELS)
+    log(f"features full: 800x450@32spp depth 10, fog, six buffers, wall "
+        f"{wall:.3f} s, segments {stats['segments']}, steps {stats['steps']}, "
+        f"segments/s {stats['segments'] / wall:.4g}, launches {launches}, "
+        f"plain calls {plain.calls}")
+    check(all(v > 0 for v in launches.values()), "a kernel was not launched")
+    check(plain.calls == 0, "a plain version ran during the CUDA render")
+    results["shade_advance_features"]["launches"] = launches[
+        "shade_advance_features"]
+    for name, img in imgs.items():
+        log(f"  {name}: mean {img.mean():.4f} max {img.max():.4f}")
+        check(bool(np.isfinite(img).all()) and img.max() > 0,
+              f"features full {name}: not finite or zero")
+    # The albedo AOV against the first hits of a chunked render of the same
+    # frame (1 spp, depth 1): a dimmed AOV would show here.
+    ref = integrator.render(*inputs, 1, _chunked_cfg(800, 450, 1, max_depth=1))
+    ref_mean = float(ref["albedo"].mean())
+    rel = abs(float(imgs["albedo"].mean()) - ref_mean) / ref_mean
+    log(f"  albedo mean {imgs['albedo'].mean():.5f} vs first-hit chunked "
+        f"{ref_mean:.5f}: {rel:.4f} relative (limit 0.02)")
+    check(rel <= 0.02, "features full: albedo mean off")
+    _profile("800x450@32spp fused features", inputs, _features_cfg(800, 450, 32))
+
+
 def main() -> int:
     import torch
 
@@ -736,6 +918,9 @@ def main() -> int:
     phase_full(results)
     phase_chunked_smoke()
     phase_chunked_full(results)
+    phase_k3_features(results)
+    phase_features_smoke()
+    phase_features_full(results)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

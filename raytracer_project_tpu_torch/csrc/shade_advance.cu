@@ -1,6 +1,6 @@
 // K3, shade-advance (replaces the Pallas kernel _shade_advance_kernel with
 // _inclusive_rank, _sun_sky and _raygen, raytracer_project_tpu/ops/
-// fused_step.py:669, :571, :591, :633; beauty only).
+// fused_step.py:669, :571, :591, :633).
 //
 // Per lane: background (sun-sky, solid or HDR texel), bump-mapped normal,
 // the branchless Lambertian / metal / dielectric / isotropic / emissive
@@ -9,6 +9,27 @@
 // from the global work counter with the camera ray regenerated in the
 // kernel. The texel, bump-delta and HDR rows are direct loads here (the
 // reference gathers them between its kernels).
+//
+// Three features are compile-time variants, shade_kernel<SPEC, AOVS, FOG>,
+// so that the beauty variant <false, false, false> carries none of them:
+//   FOG   solid-albedo fog: per volume row of vparams (f32[V, 16], read by
+//         every lane through the read-only cache) the boundary span clamped
+//         by the surface hit and an exponential free flight; a scatter
+//         overrides the hit with the volume's isotropic phase material
+//         (reference :772-845). logf is the card's, within an ulp of the
+//         plain version's log: a lane whose flight sits on its span's end
+//         may flip, which the tests budget.
+//   AOVS  albedo / normal / z-depth of bounce-0 beauty lanes whose absolute
+//         sample id is below aux (:965-996); aov_mask picks the buffers.
+//   SPEC  the reflection/refraction split passes as spec lanes: state rows
+//         is_spec, to_refl, to_refr and attn0; no first-hit emission or
+//         attenuation on a spec lane, the routing at its first hit, the
+//         firefly-clamped contributions (:921-963, :1003-1016), and work
+//         ids from n_beauty on respawning as spec lanes (:1031-1078).
+// Outputs are [k, P] rows that the pool adds with one index_add_: contrib
+// (beauty 3, the enabled AOV values, reflection 3, refraction 3) and tgt
+// (beauty, AOV, reflection, refraction targets); fused_step.acc_channels
+// names them.
 //
 // The respawn needs, for each free lane, the number of free lanes before
 // it in lane order. The reference carries that count across a grid that
@@ -22,9 +43,11 @@
 //                   that is below total_work; block 0 writes next_work,
 //                   the segment count (int64) and the live count.
 //
-// Bound on the H100: bytes. Per lane it reads 24 record rows, 16 state
-// rows and up to 6 texel words and writes 16 state rows, 3 contributions
-// and a target: about 272 B/lane at 3.35 TB/s.
+// Bound on the H100: bytes. Per lane the beauty variant reads 24 record
+// rows, 16 state rows and up to 6 texel words and writes 16 state rows, 3
+// contributions and a target: about 272 B/lane at 3.35 TB/s. The variant
+// with every feature moves 22 state rows each way and writes 16
+// contributions and 4 targets: about 376 B/lane.
 
 #include <stdint.h>
 
@@ -44,13 +67,19 @@ enum {
   BP_INTENSITY = 26, BP_BG = 27,
 };
 enum { PHYSICAL_SUN = 0, HDR_MAP = 1, SOLID_COLOR = 2 };
-enum { STREAM_CAMERA = 0, STREAM_SCATTER = 1, STREAM_RR = 2 };
+enum { STREAM_CAMERA = 0, STREAM_SCATTER = 1, STREAM_RR = 2, STREAM_VOLUME = 3 };
+enum { VP_KIND = 0, VP_CENTER = 1, VP_RADIUS = 4, VP_BMIN = 5, VP_BMAX = 8,
+       VP_NID = 11, VP_ALBEDO = 12, VP_COLS = 16 };
+enum { BP_CAM_U = 30 };  // camera right, up, backward at 30, 33, 36
+enum { AOV_ALBEDO = 1, AOV_NORMAL = 2, AOV_Z = 4 };
 
 #define RAY_EPSILON 1e-4f
 #define WEAK_RAY_EPS 1e-4f
 #define RR_START_BOUNCE 10
 #define RR_P_MIN 0.05f
 #define RR_P_MAX 0.95f
+#define T_MIN_F 1e-3f
+#define SALT_MUL 0x85EBCA6Bu
 
 // --- counter-hash lane RNG (core/rng.py) ------------------------------------
 
@@ -81,6 +110,12 @@ __device__ __forceinline__ Bits4 bits4(uint32_t seed, uint32_t pix,
 
 __device__ __forceinline__ float u01(uint32_t bits) {
   return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+// v - 2 (v.n) n (core/soa.reflect)
+__device__ __forceinline__ V3 reflect(V3 v, V3 n) {
+  float dd2 = 2.0f * dot(v, n);
+  return v3(v.x - dd2 * n.x, v.y - dd2 * n.y, v.z - dd2 * n.z);
 }
 
 // --- sky and camera ---------------------------------------------------------
@@ -154,14 +189,17 @@ __device__ void raygen(const float* bp, uint32_t seed, int pix, int samp,
 
 // --- launch 1: shade and advance ---------------------------------------------
 
+template <bool SPEC, bool AOVS, bool FOG>
 __global__ void shade_kernel(
     const float* __restrict__ rec, const float* __restrict__ sf,
     const int* __restrict__ si, int p, const float* __restrict__ bp,
     const float* __restrict__ atlas_rows, const float* __restrict__ grad_rows,
-    const float* __restrict__ env_rows, uint32_t seed, int n_pixels,
-    int max_depth, int env_mode, float* __restrict__ out_f,
-    int* __restrict__ out_i, float* __restrict__ contrib,
-    int* __restrict__ tgt, int* __restrict__ counts) {
+    const float* __restrict__ env_rows, const float* __restrict__ vparams,
+    uint32_t seed, int n_pixels, int max_depth, int env_mode, int aux,
+    float z_max, int aov_mask, int use_reflection, int use_refraction,
+    int n_volumes, float* __restrict__ out_f, int* __restrict__ out_i,
+    float* __restrict__ contrib, int* __restrict__ tgt,
+    int* __restrict__ counts) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool in = i < p;
   bool live = false, free_lane = false, still = false;
@@ -192,7 +230,82 @@ __global__ void shade_kernel(
     V3 rad = v3(sf[9 * p + i], sf[10 * p + i], sf[11 * p + i]);
     live = si[i] > 0;
     int bounce = si[p + i], samp = si[2 * p + i], li = si[3 * p + i];
-    uint32_t ctx = ((uint32_t)bounce) << 1;
+    bool is_spec = false, to_refl = false, to_refr = false;
+    V3 attn0 = v3(1.0f, 1.0f, 1.0f);
+    uint32_t spec_bit = 0u;
+    if (SPEC) {
+      spec_bit = (uint32_t)si[4 * p + i];
+      is_spec = si[4 * p + i] > 0;
+      to_refl = si[5 * p + i] > 0;
+      to_refr = si[6 * p + i] > 0;
+      attn0 = v3(sf[12 * p + i], sf[13 * p + i], sf[14 * p + i]);
+    }
+    uint32_t ctx = (((uint32_t)bounce) << 1) | spec_bit;
+
+    if (FOG) {
+      float best_vt = hit ? t_hit : T_MAX_F;
+      bool vol_take = false;
+      V3 valb = v3(0.0f, 0.0f, 0.0f);
+      float dd_v = d.x * d.x + d.y * d.y + d.z * d.z;
+      float ray_len = sqrtf(dd_v);
+      for (int v = 0; v < n_volumes; ++v) {
+        const float* vp = vparams + v * VP_COLS;
+        float entry, exit_;
+        bool bhit;
+        if (__ldg(vp + VP_KIND) < 0.5f) {
+          float radius = __ldg(vp + VP_RADIUS);
+          V3 oc = v3(__ldg(vp + VP_CENTER) - o.x, __ldg(vp + VP_CENTER + 1) - o.y,
+                     __ldg(vp + VP_CENTER + 2) - o.z);
+          float h_v = d.x * oc.x + d.y * oc.y + d.z * oc.z;
+          float c_v = oc.x * oc.x + oc.y * oc.y + oc.z * oc.z - radius * radius;
+          float disc = h_v * h_v - dd_v * c_v;
+          float sq = sqrtf(fmaxf(disc, 0.0f));
+          entry = (h_v - sq) / dd_v;
+          exit_ = (h_v + sq) / dd_v;
+          bhit = disc > 0.0f && radius > 0.0f;
+        } else {
+          const float dv[3] = {d.x, d.y, d.z};
+          const float ov[3] = {o.x, o.y, o.z};
+          float tn[3], tf[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            float dk = fabsf(dv[k]) < 1e-20f ? (dv[k] < 0.0f ? -1e-20f : 1e-20f)
+                                             : dv[k];
+            float inv = 1.0f / dk;
+            float t0 = (__ldg(vp + VP_BMIN + k) - ov[k]) * inv;
+            float t1 = (__ldg(vp + VP_BMAX + k) - ov[k]) * inv;
+            tn[k] = fminf(t0, t1);
+            tf[k] = fmaxf(t0, t1);
+          }
+          entry = fmaxf(fmaxf(tn[0], tn[1]), tn[2]);
+          exit_ = fminf(fminf(tf[0], tf[1]), tf[2]);
+          bhit = entry < exit_;
+        }
+        float e_v = fmaxf(entry, T_MIN_F);
+        float x_v = fminf(exit_, best_vt);
+        bool valid = bhit && e_v < x_v;
+        uint32_t vseed = seed + (uint32_t)(v + 1) * SALT_MUL;
+        float u_v = u01(bits4(vseed, (uint32_t)li, (uint32_t)samp, ctx,
+                              STREAM_VOLUME).a);
+        float flight = __ldg(vp + VP_NID) * logf(fmaxf(u_v, 1e-38f));
+        bool scatters = valid && flight <= (x_v - e_v) * ray_len;
+        float t_v = e_v + flight / fmaxf(ray_len, 1e-20f);
+        if (scatters && t_v < best_vt) {
+          best_vt = t_v;
+          valb = v3(__ldg(vp + VP_ALBEDO), __ldg(vp + VP_ALBEDO + 1),
+                    __ldg(vp + VP_ALBEDO + 2));
+          vol_take = true;
+        }
+      }
+      if (vol_take) {
+        hit = true;
+        t_hit = best_vt;
+        mtype = 4.0f;  // ISOTROPIC
+        tex3 = valb;
+        normal = v3(1.0f, 0.0f, 0.0f);
+        front = true;
+      }
+    }
 
     float t_safe = hit ? t_hit : 1.0f;
     V3 hp = v3(t_safe * d.x + o.x, t_safe * d.y + o.y, t_safe * d.z + o.z);
@@ -233,9 +346,7 @@ __global__ void shade_kernel(
     lam_dir = nz ? working_n : lam_dir;
     V3 eps_origin = axpy(RAY_EPSILON, normal, hp);
 
-    float dd2 = 2.0f * dot(unit_in, working_n);
-    V3 reflected = v3(unit_in.x - dd2 * working_n.x, unit_in.y - dd2 * working_n.y,
-                      unit_in.z - dd2 * working_n.z);
+    V3 reflected = reflect(unit_in, working_n);
     V3 metal_dir = normalize(axpy(param, sphere_draw, reflected));
     bool metal_ok = dot(metal_dir, normal) > 0.0f;
 
@@ -267,14 +378,18 @@ __global__ void shade_kernel(
     bool scattered = is_lam || (is_metal && metal_ok) || is_diel || is_iso;
     V3 emitted = is_emit ? tex3 : v3(0.0f, 0.0f, 0.0f);
 
+    // A spec lane skips its first hit's emission and attenuation.
+    bool at0 = bounce == 0;
+    bool emit_ok = !(at0 && is_spec);
     bool miss = live && !hit;
     rad = v3(rad.x + (miss ? thr.x * bg.x : 0.0f), rad.y + (miss ? thr.y * bg.y : 0.0f),
              rad.z + (miss ? thr.z * bg.z : 0.0f));
     bool active = live && hit;
-    rad = v3(rad.x + (active ? thr.x * emitted.x : 0.0f),
-             rad.y + (active ? thr.y * emitted.y : 0.0f),
-             rad.z + (active ? thr.z * emitted.z : 0.0f));
-    thr = (active && scattered) ? mul(thr, attenuation) : thr;
+    bool emit_lane = active && emit_ok;
+    rad = v3(rad.x + (emit_lane ? thr.x * emitted.x : 0.0f),
+             rad.y + (emit_lane ? thr.y * emitted.y : 0.0f),
+             rad.z + (emit_lane ? thr.z * emitted.z : 0.0f));
+    thr = (active && scattered && emit_ok) ? mul(thr, attenuation) : thr;
     active = active && scattered;
 
     bool late = (bounce - 1) > RR_START_BOUNCE;
@@ -286,11 +401,80 @@ __global__ void shade_kernel(
     thr = (late && active) ? scale(thr, 1.0f / p_rr) : thr;
     active = active && (bounce + 1 < max_depth);
 
+    // Spec-pass routing at the first hit (camera.hpp:492-517).
+    if (SPEC) {
+      bool spec0 = at0 && is_spec && live;
+      V3 refl_dir = reflect(normalize(d), normalize(normal));
+      bool is_specular = dot(normalize(sc_dir), refl_dir) > 0.9f;
+      bool entering = dot(sc_dir, normal) < 0.0f;
+      bool spec_live = hit && scattered;
+      if (spec0) {
+        to_refl = use_reflection && spec_live && is_specular;
+        to_refr = use_refraction && spec_live && !is_specular && entering;
+        attn0 = attenuation;
+      }
+      active = active && !(spec0 && !(to_refl || to_refr));
+    }
+
     bool done = live && !active;
-    tgt[i] = done ? li : n_pixels;
-    contrib[i] = done ? rad.x : 0.0f;
-    contrib[p + i] = done ? rad.y : 0.0f;
-    contrib[2 * p + i] = done ? rad.z : 0.0f;
+    bool done_beauty = done && !is_spec;
+    tgt[i] = done_beauty ? li : n_pixels;
+    contrib[i] = done_beauty ? rad.x : 0.0f;
+    contrib[p + i] = done_beauty ? rad.y : 0.0f;
+    contrib[2 * p + i] = done_beauty ? rad.z : 0.0f;
+    int crow = 3, trow_out = 1;
+
+    // AOVs of bounce-0 beauty lanes within the aux budget.
+    if (AOVS) {
+      bool is_aux = live && at0 && samp < aux && !is_spec;
+      tgt[p + i] = is_aux ? li : n_pixels;
+      trow_out = 2;
+      if (aov_mask & AOV_ALBEDO) {
+        const float tc[3] = {tex3.x, tex3.y, tex3.z};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          float alb = is_diel ? 1.0f : tc[k];
+          alb = is_emit ? fminf(tc[k], 1.0f) : alb;
+          alb = is_iso ? 0.0f : alb;
+          contrib[(crow + k) * p + i] = (is_aux && hit) ? alb : 0.0f;
+        }
+        crow += 3;
+      }
+      if (aov_mask & AOV_NORMAL) {
+        V3 nn = normalize(normal);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float* axis = bp + BP_CAM_U + 3 * k;
+          float c = nn.x * axis[0] + nn.y * axis[1] + nn.z * axis[2];
+          c = (c + 1.0f) * 0.5f;
+          float miss_c = k < 2 ? 0.5f : 1.0f;
+          contrib[(crow + k) * p + i] = is_aux ? (hit ? c : miss_c) : 0.0f;
+        }
+        crow += 3;
+      }
+      if (aov_mask & AOV_Z) {
+        float zval = 1.0f - clampf(t_hit / z_max, 0.0f, 1.0f);
+        contrib[crow * p + i] = (is_aux && hit) ? zval : 0.0f;
+        crow += 1;
+      }
+    }
+
+    // Finished spec paths: firefly clamp on |radiance|, then the first-hit
+    // attenuation (camera.hpp:499-509).
+    if (SPEC) {
+      float luma = 0.2126f * sqrtf(dot(rad, rad));
+      float fscale = luma > 2.0f ? 2.0f / fmaxf(luma, 1e-12f) : 1.0f;
+      const float sc[3] = {attn0.x * rad.x * fscale, attn0.y * rad.y * fscale,
+                           attn0.z * rad.z * fscale};
+      bool d_refl = done && to_refl, d_refr = done && to_refr;
+      tgt[trow_out * p + i] = d_refl ? li : n_pixels;
+      tgt[(trow_out + 1) * p + i] = d_refr ? li : n_pixels;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        contrib[(crow + k) * p + i] = d_refl ? sc[k] : 0.0f;
+        contrib[(crow + 3 + k) * p + i] = d_refr ? sc[k] : 0.0f;
+      }
+    }
 
     V3 no = active ? sc_origin : o;
     V3 nd = active ? sc_dir : d;
@@ -303,6 +487,14 @@ __global__ void shade_kernel(
     out_i[p + i] = bounce + 1;
     out_i[2 * p + i] = samp;
     out_i[3 * p + i] = li;
+    if (SPEC) {
+      out_f[12 * p + i] = attn0.x;
+      out_f[13 * p + i] = attn0.y;
+      out_f[14 * p + i] = attn0.z;
+      out_i[4 * p + i] = is_spec ? 1 : 0;
+      out_i[5 * p + i] = to_refl ? 1 : 0;
+      out_i[6 * p + i] = to_refr ? 1 : 0;
+    }
     free_lane = !still;
   }
   int n_free = __syncthreads_count(free_lane);
@@ -328,13 +520,15 @@ __device__ long long block_sum(long long v, long long* red) {
   return s;
 }
 
+template <bool SPEC>
 __global__ void respawn_kernel(
     int p, const float* __restrict__ bp, uint32_t seed, int sample_offset,
     int n_pixels, float inv_n, int width, float inv_w, int total_work,
-    const int* __restrict__ next_work_in, const long long* __restrict__ seg_in,
-    const int* __restrict__ counts, float* __restrict__ out_f,
-    int* __restrict__ out_i, int* __restrict__ next_out,
-    long long* __restrict__ seg_out, int* __restrict__ live_count) {
+    int n_beauty, const int* __restrict__ next_work_in,
+    const long long* __restrict__ seg_in, const int* __restrict__ counts,
+    float* __restrict__ out_f, int* __restrict__ out_i,
+    int* __restrict__ next_out, long long* __restrict__ seg_out,
+    int* __restrict__ live_count) {
   __shared__ long long red[NWARP];
   __shared__ int warp_free[NWARP];
   const int nb = gridDim.x;
@@ -378,6 +572,9 @@ __global__ void respawn_kernel(
   if (!free_lane) return;
   long long new_w = next_work + before + rank - 1;
   if (new_w >= total_work) return;
+  // Work ids from n_beauty on are the spec lanes of the same samples.
+  bool new_spec = SPEC && new_w >= n_beauty;
+  if (new_spec) new_w -= n_beauty;
 
   // Work id -> (pixel, sample), in f32 as the reference decodes it (exact
   // below 2^24).
@@ -399,31 +596,61 @@ __global__ void respawn_kernel(
   out_i[p + i] = 0;
   out_i[2 * p + i] = new_samp;
   out_i[3 * p + i] = new_li;
+  if (SPEC) {
+    out_f[12 * p + i] = 1.0f;
+    out_f[13 * p + i] = 1.0f;
+    out_f[14 * p + i] = 1.0f;
+    out_i[4 * p + i] = new_spec ? 1 : 0;
+    out_i[5 * p + i] = 0;
+    out_i[6 * p + i] = 0;
+  }
 }
+
+#define SHADE_ARGS                                                             \
+  (const float*)rec, (const float*)state_f, (const int*)state_i, p,          \
+      (const float*)bparams, (const float*)atlas_rows,                       \
+      (const float*)grad_rows, (const float*)env_rows, (const float*)vparams, \
+      seed, n_pixels, max_depth, env_mode, aux, z_max, aov_mask,             \
+      use_reflection, use_refraction, n_volumes, (float*)out_f, (int*)out_i, \
+      (float*)contrib, (int*)tgt, (int*)counts
 
 extern "C" int shade_advance_launch(
     const void* rec, const void* state_f, const void* state_i, int p,
     const void* bparams, const void* atlas_rows, const void* grad_rows,
-    const void* env_rows, unsigned int seed, int sample_offset, int n_pixels,
-    float inv_n, int width, float inv_w, int total_work, int max_depth,
-    int env_mode, const void* next_work, const void* segments, void* out_f,
-    void* out_i, void* contrib, void* tgt, void* counts, void* next_out,
-    void* seg_out, void* live_count, void* stream) {
+    const void* env_rows, const void* vparams, unsigned int seed,
+    int sample_offset, int n_pixels, float inv_n, int width, float inv_w,
+    int total_work, int max_depth, int env_mode, int aux, float z_max,
+    int aov_mask, int use_reflection, int use_refraction, int n_beauty, int n_volumes, const void* next_work, const void* segments,
+    void* out_f, void* out_i, void* contrib, void* tgt, void* counts,
+    void* next_out, void* seg_out, void* live_count, void* stream) {
   int grid = (p + BLOCK - 1) / BLOCK;
   if (grid == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  shade_kernel<<<grid, BLOCK, 0, s>>>(
-      (const float*)rec, (const float*)state_f, (const int*)state_i, p,
-      (const float*)bparams, (const float*)atlas_rows,
-      (const float*)grad_rows, (const float*)env_rows, seed, n_pixels,
-      max_depth, env_mode, (float*)out_f, (int*)out_i, (float*)contrib,
-      (int*)tgt, (int*)counts);
+  bool want_spec = use_reflection || use_refraction;
+  switch ((want_spec ? 4 : 0) | (aov_mask ? 2 : 0) | (n_volumes > 0 ? 1 : 0)) {
+    case 0: shade_kernel<false, false, false><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 1: shade_kernel<false, false, true><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 2: shade_kernel<false, true, false><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 3: shade_kernel<false, true, true><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 4: shade_kernel<true, false, false><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 5: shade_kernel<true, false, true><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 6: shade_kernel<true, true, false><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    default: shade_kernel<true, true, true><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  respawn_kernel<<<grid, BLOCK, 0, s>>>(
-      p, (const float*)bparams, seed, sample_offset, n_pixels, inv_n, width,
-      inv_w, total_work, (const int*)next_work, (const long long*)segments,
-      (const int*)counts, (float*)out_f, (int*)out_i, (int*)next_out,
-      (long long*)seg_out, (int*)live_count);
+  if (want_spec) {
+    respawn_kernel<true><<<grid, BLOCK, 0, s>>>(
+        p, (const float*)bparams, seed, sample_offset, n_pixels, inv_n, width,
+        inv_w, total_work, n_beauty, (const int*)next_work,
+        (const long long*)segments, (const int*)counts, (float*)out_f,
+        (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count);
+  } else {
+    respawn_kernel<false><<<grid, BLOCK, 0, s>>>(
+        p, (const float*)bparams, seed, sample_offset, n_pixels, inv_n, width,
+        inv_w, total_work, n_beauty, (const int*)next_work,
+        (const long long*)segments, (const int*)counts, (float*)out_f,
+        (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count);
+  }
   return (int)cudaGetLastError();
 }

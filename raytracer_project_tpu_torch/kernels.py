@@ -42,8 +42,9 @@ SIGNATURES = {
     "decode_launch": ("decode", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                                  _I, _I, _I, _I, _F, _F, _I, _F, _F, _P, _P]),
     "shade_advance_launch": ("shade_advance",
-                             [_P, _P, _P, _I, _P, _P, _P, _P, _U, _I, _I, _F,
-                              _I, _F, _I, _I, _I] + [_P] * 11),
+                             [_P, _P, _P, _I, _P, _P, _P, _P, _P, _U, _I, _I,
+                              _F, _I, _F, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                              _I] + [_P] * 11),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

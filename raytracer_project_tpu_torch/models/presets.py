@@ -83,11 +83,11 @@ def showcase_scene(seed: int = 3, with_bvh: bool = False, use_fog: bool = False,
     checker-mirror ground sphere, hero objects (glass teapot mesh, scratched
     mirror, scratched gold, bumpy wood, foggy-glass cube), and a
     `2*grid x 2*grid` randomized field of neon cubes / glass spheres /
-    regular cubes+spheres with the 25/30/45 distribution.
+    regular cubes+spheres with the 25/30/45 distribution; use_fog adds the
+    reference's fog sphere (radius 50 around the origin).
 
-    with_bvh and use_fog are accepted for the reference's signature; the
-    port raises NotImplementedError for either until the BVH and the fog
-    land (ROADMAP)."""
+    with_bvh is accepted for the reference's signature; the port raises
+    NotImplementedError for it until the BVH lands (ROADMAP)."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     load_reference_materials(b, rng)

@@ -2,13 +2,15 @@
 
 A Scene is a NamedTuple of SoA tables; `SceneBuilder.build` assembles them
 in numpy and converts every leaf to a CPU tensor once, and `Scene.to`
-moves the whole scene to a device. The BVH and participating media are
-not part of this slice (ROADMAP queue 1).
+moves the whole scene to a device. Fog volumes (ops/volumes.py) are a
+table of their own; the BVH is not ported yet (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import numpy as np
 
 from ..core.tree import to_device, unflatten
 from .geometry import BoxTable, GeometryBuilder, SphereTable, TriangleTable
@@ -17,8 +19,9 @@ from .textures import TextureBank, TextureBankBuilder
 
 
 class Scene(NamedTuple):
-    """Frozen scene: primitive, material and texture tables plus the
-    closest-hit coefficient tables (ops.intersect.MMTables)."""
+    """Frozen scene: primitive, material and texture tables, the
+    closest-hit coefficient tables (ops.intersect.MMTables) and the fog
+    volumes (ops.volumes.VolumeTable, None without media)."""
 
     spheres: SphereTable
     triangles: TriangleTable
@@ -26,6 +29,7 @@ class Scene(NamedTuple):
     textures: TextureBank
     mm: object = None
     boxes: BoxTable | None = None
+    volumes: object = None
 
     @property
     def primitive_count(self) -> int:
@@ -51,13 +55,50 @@ class SceneBuilder:
         self.geometry = GeometryBuilder()
         self.materials = MaterialLibrary()
         self.textures = TextureBankBuilder()
+        self._volumes: list[dict] = []
 
-    def add_fog_sphere(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fog (constant media) is not ported yet: ROADMAP queue 1, "
-            "fused features (AOVs, spec passes, fog)")
+    def add_fog_sphere(self, center, radius, density, color,
+                       texture_id: int = -1, name: str | None = None) -> None:
+        """Spherical constant-density medium (constant_medium.hpp ctor,
+        scene_management.hpp:228-234); its isotropic phase material joins
+        the material library."""
+        mat = self.materials.isotropic(
+            name or f"__fog_{len(self._volumes)}__", tuple(color), texture_id)
+        self._volumes.append(dict(kind=0, center=tuple(center),
+                                  radius=float(radius),
+                                  box_min=(0, 0, 0), box_max=(0, 0, 0),
+                                  density=float(density), mat=mat))
 
-    add_fog_box = add_fog_sphere
+    def add_fog_box(self, box_min, box_max, density, color,
+                    texture_id: int = -1, name: str | None = None) -> None:
+        """Axis-aligned-box constant-density medium."""
+        mat = self.materials.isotropic(
+            name or f"__fog_{len(self._volumes)}__", tuple(color), texture_id)
+        self._volumes.append(dict(kind=1, center=(0, 0, 0), radius=0.0,
+                                  box_min=tuple(box_min),
+                                  box_max=tuple(box_max),
+                                  density=float(density), mat=mat))
+
+    def _pack_volumes(self):
+        if not self._volumes:
+            return None
+        from ..ops.volumes import VolumeTable
+
+        vs = self._volumes
+        mats = np.asarray([v["mat"] for v in vs], np.int32)
+        tex_ids = np.asarray(self.materials.pack().texture_id)[mats]
+        textured = mats[tex_ids >= 0]
+        return VolumeTable(
+            kind=np.asarray([v["kind"] for v in vs], np.int32),
+            center=np.asarray([v["center"] for v in vs], np.float32),
+            radius=np.asarray([v["radius"] for v in vs], np.float32),
+            box_min=np.asarray([v["box_min"] for v in vs], np.float32),
+            box_max=np.asarray([v["box_max"] for v in vs], np.float32),
+            neg_inv_density=np.asarray([-1.0 / v["density"] for v in vs],
+                                       np.float32),
+            mat=mats,
+            textured=textured if textured.size else None,
+        )
 
     def build(self, with_bvh: bool = False) -> Scene:
         """Pack every table in numpy, then convert the scene to CPU tensors."""
@@ -74,6 +115,7 @@ class SceneBuilder:
             materials=self.materials.pack(),
             textures=self.textures.pack(),
             mm=build_mm_tables(spheres, triangles, boxes),
+            volumes=self._pack_volumes(),
         )
         return scene.to("cpu")
 
@@ -81,8 +123,9 @@ class SceneBuilder:
 def scene_from_numpy(d: dict) -> Scene:
     """Scene from a flat {dotted field path: numpy array} dict, e.g.
     {"spheres.center": ..., "mm.tri_coeff": ...}. Tables whose fields are
-    absent (boxes, mm) stay None."""
+    absent (boxes, mm, volumes) stay None."""
     from ..ops.intersect import MMTables
+    from ..ops.volumes import VolumeTable
 
     def sub(cls, name):
         keys = {k[len(name) + 1:]: v for k, v in d.items()
@@ -96,4 +139,5 @@ def scene_from_numpy(d: dict) -> Scene:
         textures=sub(TextureBank, "textures"),
         mm=sub(MMTables, "mm"),
         boxes=sub(BoxTable, "boxes"),
+        volumes=sub(VolumeTable, "volumes"),
     )

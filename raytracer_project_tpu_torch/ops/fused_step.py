@@ -1,5 +1,5 @@
 """The fused pooled-wavefront step (twin of
-raytracer_project_tpu/ops/fused_step.py, beauty subset).
+raytracer_project_tpu/ops/fused_step.py).
 
 A pool of P lanes traces one path segment per step. Each step is three
 kernels and one scatter-add:
@@ -7,7 +7,14 @@ kernels and one scatter-add:
   K1 closest hit    ops/closest_hit.py         (csrc/closest_hit.cu)
   K2 decode         `decode` below             (csrc/decode.cu)
   K3 shade-advance  `shade_advance` below      (csrc/shade_advance.cu)
-  accumulator       Tensor.index_add_ of finished-path radiance
+  accumulator       one Tensor.index_add_ of every output channel
+
+Besides beauty, K3 samples solid-albedo fog, writes the albedo / normal /
+z-depth AOVs of camera segments, and runs the reflection/refraction split
+passes as spec lanes: work ids n*spp .. 2*n*spp-1 retrace each sample's
+camera ray with RNG context (bounce << 1) | 1 and add to the pass its
+first hit routes them to. Which of these a render needs selects K3's
+compiled variant.
 
 Per-sample semantics are the reference's: same RNG contexts, constants
 and update order, so a lane's path depends only on (seed, pixel, sample).
@@ -31,7 +38,7 @@ from .. import kernels
 from ..core import rng, soa, vecmath
 from ..core.constants import (
     PI, RAY_EPSILON, RR_P_MAX, RR_P_MIN, RR_START_BOUNCE, T_MAX, T_MIN,
-    WEAK_RAY_EPS,
+    WEAK_RAY_EPS, Z_DEPTH_MAX_DIST,
 )
 from ..models import camera as camera_mod
 from ..models import environment as env_mod
@@ -87,6 +94,19 @@ _BP_SUN_INT = 24
 _BP_SUN_SIZE = 25
 _BP_INTENSITY = 26
 _BP_BG = 27
+_BP_CAM_U = 30   # camera right, up, backward (the view-space normal AOV)
+_BP_CAM_V = 33
+_BP_CAM_W = 36
+
+# K3 volume rows (f32 [V, 16]; fused_step.py:1266-1281 of the reference).
+_VP_KIND = 0     # 0 sphere, 1 box
+_VP_CENTER = 1   # 1:4
+_VP_RADIUS = 4
+_VP_BMIN = 5     # 5:8
+_VP_BMAX = 8     # 8:11
+_VP_NID = 11     # -1/density
+_VP_ALBEDO = 12  # 12:15 the phase material's solid albedo
+_VP_COLS = 16
 
 # Work-id cap: respawn decodes (pixel, sample) from the work id in f32,
 # exact only below 2^24; larger renders are sample-chunked.
@@ -105,6 +125,7 @@ class FusedTables(NamedTuple):
     atlas_rows: torch.Tensor  # f32[K*AH*AW, 4] texels (r, g, b, 0)
     grad_rows: torch.Tensor   # f32[K*AH*AW, 2] bump neighbour deltas
     env_rows: torch.Tensor    # f32[EH*EW, 4] HDR texels (zeros [1, 4] unless HDR)
+    vparams: torch.Tensor     # f32[V, 16] fog volumes (_VP_*; zeros [1, 16] if none)
     atlas_hw: tuple      # (AH, AW)
     env_hw: tuple | None  # (EH, EW) in HDR mode
 
@@ -132,6 +153,21 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
         env_rows = pad1(env.hdr_image.reshape(-1, 3))
     mm = scene.mm
     n_boxes = scene.boxes.count if scene.boxes is not None else 0
+    vparams = torch.zeros((1, _VP_COLS), dtype=torch.float32,
+                          device=mattab.device)
+    vol = scene.volumes
+    if vol is not None and vol.count:
+        if vol.textured is not None:
+            raise NotImplementedError(
+                "textured fog on the fused pool needs the unfused pool "
+                "(ROADMAP queue 1 item 3); render it with wavefront=False")
+        col = lambda x: x.to(torch.float32).reshape(vol.count, -1)
+        vparams = torch.cat([
+            col(vol.kind), col(vol.center), col(vol.radius), col(vol.box_min),
+            col(vol.box_max), col(vol.neg_inv_density),
+            m.albedo[vol.mat.long()],
+            torch.zeros((vol.count, 1), dtype=torch.float32,
+                        device=mattab.device)], dim=1)
     return FusedTables(
         coeffs=(mm.sphere_coeff, mm.tri_coeff, mm.box_coeff),
         bounds=tuple(k1.coarsen_bounds(b).contiguous() for b in
@@ -143,6 +179,7 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
         atlas_rows=pad1(bank.data.reshape(-1, 3)).contiguous(),
         grad_rows=bank.grad.reshape(-1, 2).contiguous(),
         env_rows=env_rows.contiguous(),
+        vparams=vparams.contiguous(),
         atlas_hw=(int(bank.data.shape[1]), int(bank.data.shape[2])),
         env_hw=env_hw,
     )
@@ -150,13 +187,18 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
 
 def fused_supported(scene, config, env=None, check_spp: bool = True) -> bool:
     """Whether the fused step covers this render (else sample-chunk it or,
-    past the limits below, nothing in the port does yet)."""
+    past the limits below, nothing in the port does yet). Fog is sampled in
+    K3 with the volume's albedo resolved ahead, which needs solid
+    (untextured) phase materials, the only kind the builder makes by
+    default; `build_tables` raises on textured fog."""
     n_tex = int(np.prod(tuple(scene.textures.data.shape[:3])))
     env_texels = 0
     if env is not None and config.env_mode == env_mod.HDR_MAP:
         env_texels = int(np.prod(tuple(env.hdr_image.shape[:2])))
+    volumes_ok = scene.volumes is None or scene.volumes.textured is None
     return (
         scene.mm is not None
+        and volumes_ok
         and (not check_spp
              or config.n_pixels * config.samples_per_pixel * 2
              < _TOTAL_WORK_CAP)
@@ -339,7 +381,9 @@ def trace_decode(tables: FusedTables, od, aparams):
 # ---------------------------------------------------------------------------
 
 class StepParams(NamedTuple):
-    """Scalars of one pool render, shared by every K3 launch."""
+    """Scalars of one pool render, shared by every K3 launch. The fields
+    from `aux` on select K3's variant (reference _shade_advance_kernel's
+    static arguments); their defaults give the beauty variant."""
 
     seed: int            # u32
     sample_offset: int
@@ -348,6 +392,67 @@ class StepParams(NamedTuple):
     total_work: int
     max_depth: int
     env_mode: int
+    aux: int = 0                 # AOV samples: absolute sample ids below it
+    z_max: float = Z_DEPTH_MAX_DIST
+    aovs: tuple = ()             # subset of AOVS, in that order
+    use_reflection: bool = False
+    use_refraction: bool = False
+    n_beauty: int = 0            # work ids from here on are spec lanes
+    n_volumes: int = 0           # rows of FusedTables.vparams sampled
+
+    @property
+    def want_spec(self) -> bool:
+        """Whether the pool runs spec lanes (either split pass is on)."""
+        return self.use_reflection or self.use_refraction
+
+    @property
+    def features(self) -> bool:
+        """Whether this is a variant other than beauty."""
+        return bool(self.aovs or self.want_spec or self.n_volumes)
+
+
+AOVS = ("albedo", "normal", "z_depth")
+
+
+def _n_aov(aovs: tuple) -> int:
+    return 3 * ("albedo" in aovs) + 3 * ("normal" in aovs) + ("z_depth" in aovs)
+
+
+def state_rows(sp: StepParams) -> tuple:
+    """(f32 rows, i32 rows) of the pool state: o, d, throughput, radiance
+    and live, bounce, sample, pixel; spec lanes add the first-hit
+    attenuation attn0 (f32 x 3) and is_spec, to_refl, to_refr (i32)."""
+    return (15, 7) if sp.want_spec else (12, 4)
+
+
+def acc_channels(sp: StepParams) -> tuple:
+    """For each accumulator channel, in the reference's order (beauty rgb,
+    3 per enabled AOV with z-depth broadcast, reflection rgb, refraction
+    rgb; fused_step.py:1398-1420): (contrib row, tgt row) of K3's outputs.
+
+    contrib rows: beauty 3, then the AOV values (albedo 3, normal 3, z 1 as
+    enabled), then reflection 3 and refraction 3 with want_spec. tgt rows:
+    beauty, then the AOV target with AOVs, then reflection and refraction
+    targets with want_spec."""
+    out = [(k, 0) for k in range(3)]
+    row, trow = 3, 1
+    if sp.aovs:
+        for name in AOVS:
+            if name in sp.aovs:
+                chans = 1 if name == "z_depth" else 3
+                out += [(row + min(k, chans - 1), trow) for k in range(3)]
+                row += chans
+        trow += 1
+    if sp.want_spec:
+        out += [(row + k, trow) for k in range(3)]
+        out += [(row + 3 + k, trow + 1) for k in range(3)]
+    return tuple(out)
+
+
+def output_rows(sp: StepParams) -> tuple:
+    """(contrib rows, tgt rows) of K3's outputs (see acc_channels)."""
+    return (3 + _n_aov(sp.aovs) + 6 * sp.want_spec,
+            1 + bool(sp.aovs) + 2 * sp.want_spec)
 
 
 def _bparams(cam, env, device) -> torch.Tensor:
@@ -417,12 +522,13 @@ def _raygen(bp, seed, pix, samp, width: int):
 
 def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
                         next_work, segments, bparams, sp: StepParams):
-    """Plain PyTorch K3 (reference _shade_advance_kernel, beauty only).
+    """Plain PyTorch K3 (reference _shade_advance_kernel).
 
-    rec f32[24, P]; state_f f32[12, P] (o, d, throughput, radiance);
-    state_i i32[4, P] (live, bounce, sample, pixel); next_work i32[1];
-    segments i64[1]. Returns (state_f, state_i, contrib f32[3, P],
-    tgt i32[P], next_work i32[1], segments i64[1], live_count i32[1])."""
+    rec f32[24, P]; state_f f32[12 or 15, P] and state_i i32[4 or 7, P]
+    (state_rows); next_work i32[1]; segments i64[1]. Returns (state_f,
+    state_i, contrib f32[C, P], tgt i32[T, P], next_work i32[1], segments
+    i64[1], live_count i32[1]); output_rows gives C and T, acc_channels
+    their meaning. A target of n_pixels is the accumulator's dummy slot."""
     bp = bparams
     hit = rec[_RO_HIT] > 0.5
     t_hit = rec[_RO_T]
@@ -447,7 +553,76 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
     rad = (state_f[9], state_f[10], state_f[11])
     live = state_i[0] > 0
     bounce, samp, li = state_i[1], state_i[2], state_i[3]
-    lr = rng.LaneRng(sp.seed, rng.u32(li), rng.u32(samp), rng.u32(bounce) << 1)
+    zero = torch.zeros_like(t_hit)
+    one = torch.ones_like(t_hit)
+    if sp.want_spec:
+        is_spec = state_i[4] > 0
+        to_refl, to_refr = state_i[5] > 0, state_i[6] > 0
+        attn0 = (state_f[12], state_f[13], state_f[14])
+        spec_bit = rng.u32(state_i[4])
+    else:
+        is_spec = torch.zeros_like(live)
+        spec_bit = 0
+    lr = rng.LaneRng(sp.seed, rng.u32(li), rng.u32(samp),
+                     (rng.u32(bounce) << 1) | spec_bit)
+
+    # Participating media (fused_step.py:772-845): per volume, the
+    # boundary span clamped by the surface hit, an exponential free
+    # flight, and at a scatter the volume's solid-albedo ISOTROPIC phase
+    # material with the arbitrary frame (1, 0, 0), front.
+    if sp.n_volumes:
+        best_vt = torch.where(hit, t_hit, T_MAX)
+        vol_take = torch.zeros_like(hit)
+        valb = (zero, zero, zero)
+        dd_v = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        ray_len = vecmath.sqrt(dd_v)
+        for v in range(sp.n_volumes):
+            vp = tables.vparams[v]
+            kind, radius, nid = vp[_VP_KIND], vp[_VP_RADIUS], vp[_VP_NID]
+            oc = tuple(vp[_VP_CENTER + k] - o[k] for k in range(3))
+            h_v = d[0] * oc[0] + d[1] * oc[1] + d[2] * oc[2]
+            c_v = (oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2]
+                   - radius * radius)
+            disc = h_v * h_v - dd_v * c_v
+            sq = vecmath.sqrt(torch.clamp(disc, min=0.0))
+            s_entry = (h_v - sq) / dd_v
+            s_exit = (h_v + sq) / dd_v
+            s_hit = (disc > 0.0) & (radius > 0.0)
+            inv = tuple(1.0 / torch.where(torch.abs(d[k]) < 1e-20,
+                                          torch.where(d[k] < 0, -1e-20, 1e-20),
+                                          d[k]) for k in range(3))
+            t0v = tuple((vp[_VP_BMIN + k] - o[k]) * inv[k] for k in range(3))
+            t1v = tuple((vp[_VP_BMAX + k] - o[k]) * inv[k] for k in range(3))
+            b_entry = torch.maximum(
+                torch.maximum(torch.minimum(t0v[0], t1v[0]),
+                              torch.minimum(t0v[1], t1v[1])),
+                torch.minimum(t0v[2], t1v[2]))
+            b_exit = torch.minimum(
+                torch.minimum(torch.maximum(t0v[0], t1v[0]),
+                              torch.maximum(t0v[1], t1v[1])),
+                torch.maximum(t0v[2], t1v[2]))
+            is_sphere = kind < 0.5
+            entry = torch.where(is_sphere, s_entry, b_entry)
+            exit_ = torch.where(is_sphere, s_exit, b_exit)
+            bhit = torch.where(is_sphere, s_hit, b_entry < b_exit)
+            e_v = torch.clamp(entry, min=T_MIN)
+            x_v = torch.minimum(exit_, best_vt)
+            valid = bhit & (e_v < x_v)
+            u_v = rng.draw_uniform(lr, rng.STREAM_VOLUME, salt=v + 1)
+            flight = nid * torch.log(torch.clamp(u_v, min=1e-38))
+            scatters = valid & (flight <= (x_v - e_v) * ray_len)
+            t_v = e_v + flight / torch.clamp(ray_len, min=1e-20)
+            take = scatters & (t_v < best_vt)
+            best_vt = torch.where(take, t_v, best_vt)
+            valb = tuple(torch.where(take, vp[_VP_ALBEDO + k], valb[k])
+                         for k in range(3))
+            vol_take = vol_take | take
+        hit = hit | vol_take
+        t_hit = torch.where(vol_take, best_vt, t_hit)
+        mtype = torch.where(vol_take, float(mat_mod.ISOTROPIC), mtype)
+        tex3 = soa.where(vol_take, valb, tex3)
+        normal = soa.where(vol_take, (one, zero, zero), normal)
+        front = front | vol_take
 
     t_safe = torch.where(hit, t_hit, 1.0)
     hp = tuple(t_safe * d[k] + o[k] for k in range(3))
@@ -456,7 +631,6 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
     if sp.env_mode == env_mod.PHYSICAL_SUN:
         bg = _sun_sky(bp, *ud)
     elif sp.env_mode == env_mod.SOLID_COLOR:
-        one = torch.ones_like(t_hit)
         bg = tuple(bp[_BP_BG + k] * bp[_BP_INTENSITY] * one for k in range(3))
     else:
         env4 = tables.env_rows[rec[_RO_ENVROW].to(torch.int64)]
@@ -509,17 +683,20 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
                 soa.where(is_diel, diel_origin, hp))
     attenuation = tex3
     scattered = is_lam | (is_metal & metal_ok) | is_diel | is_iso
-    zero = torch.zeros_like(t_hit)
     emitted = soa.where(is_emit, tex3, (zero, zero, zero))
 
-    # Radiance / path update, in the reference's wavefront order.
+    # Radiance / path update, in the reference's wavefront order. A spec
+    # lane skips the first hit's emission and attenuation: its trace
+    # starts after the first scatter with throughput 1 (camera.hpp:494-498).
+    at0 = bounce == 0
+    emit_ok = ~(at0 & is_spec)
     miss = live & ~hit
     rad = tuple(rad[k] + torch.where(miss, thr[k] * bg[k], 0.0)
                 for k in range(3))
     active = live & hit
-    rad = tuple(rad[k] + torch.where(active, thr[k] * emitted[k], 0.0)
+    rad = tuple(rad[k] + torch.where(active & emit_ok, thr[k] * emitted[k], 0.0)
                 for k in range(3))
-    gainm = active & scattered
+    gainm = active & scattered & emit_ok
     thr = soa.where(gainm, soa.mul(thr, attenuation), thr)
     active = active & scattered
 
@@ -533,19 +710,75 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
     thr = soa.where(late & active, soa.scale(thr, 1.0 / p_rr), thr)
     active = active & (bounce + 1 < sp.max_depth)
 
+    # Spec-pass routing, decided at the first hit (camera.hpp:492-517).
+    if sp.want_spec:
+        spec0 = at0 & is_spec & live
+        refl_dir = soa.reflect(soa.normalize(d), soa.normalize(normal))
+        is_specular = soa.dot(soa.normalize(sc_dir), refl_dir) > 0.9
+        entering = soa.dot(sc_dir, normal) < 0.0
+        spec_live = hit & scattered
+        no = torch.zeros_like(spec_live)
+        refl_new = spec_live & is_specular if sp.use_reflection else no
+        refr_new = (spec_live & ~is_specular & entering
+                    if sp.use_refraction else no)
+        to_refl = torch.where(spec0, refl_new, to_refl)
+        to_refr = torch.where(spec0, refr_new, to_refr)
+        attn0 = soa.where(spec0, attenuation, attn0)
+        # Spec paths routed to neither buffer are dead work.
+        active = active & ~(spec0 & ~(to_refl | to_refr))
+
+    n = sp.n_pixels
+    contrib, tgts = [], []
     done = live & ~active
-    tgt = torch.where(done, li, sp.n_pixels).to(torch.int32)
-    contrib = torch.stack([torch.where(done, rad[k], 0.0) for k in range(3)])
+    done_beauty = done & ~is_spec
+    tgts.append(torch.where(done_beauty, li, n))
+    contrib += [torch.where(done_beauty, rad[k], 0.0) for k in range(3)]
+
+    # AOVs of the camera segment: bounce-0 beauty lanes whose absolute
+    # sample id is below the aux budget (camera.hpp:463-487).
+    if sp.aovs:
+        is_aux = live & at0 & (samp < sp.aux) & ~is_spec
+        tgts.append(torch.where(is_aux, li, n))
+        if "albedo" in sp.aovs:
+            for k in range(3):
+                alb = torch.where(is_diel, 1.0, tex3[k])
+                alb = torch.where(is_emit, torch.clamp(tex3[k], max=1.0), alb)
+                alb = torch.where(is_iso, 0.0, alb)
+                contrib.append(torch.where(is_aux & hit, alb, 0.0))
+        if "normal" in sp.aovs:
+            nn = soa.normalize(normal)
+            for k, base in enumerate((_BP_CAM_U, _BP_CAM_V, _BP_CAM_W)):
+                c = nn[0] * bp[base] + nn[1] * bp[base + 1] + nn[2] * bp[base + 2]
+                c = (c + 1.0) * 0.5
+                contrib.append(torch.where(
+                    is_aux, torch.where(hit, c, 0.5 if k < 2 else 1.0), 0.0))
+        if "z_depth" in sp.aovs:
+            zval = 1.0 - torch.clamp(t_hit / sp.z_max, 0.0, 1.0)
+            contrib.append(torch.where(is_aux & hit, zval, 0.0))
+
+    # Finished spec paths: the firefly clamp on the continuation, then the
+    # stored first-hit attenuation (camera.hpp:499-509).
+    if sp.want_spec:
+        luma = 0.2126 * soa.length(rad)
+        fscale = torch.where(luma > 2.0, 2.0 / torch.clamp(luma, min=1e-12), 1.0)
+        spec_c = tuple(attn0[k] * rad[k] * fscale for k in range(3))
+        for route in (to_refl, to_refr):
+            dr = done & route
+            tgts.append(torch.where(dr, li, n))
+            contrib += [torch.where(dr, spec_c[k], 0.0) for k in range(3)]
 
     # Respawn: lane -> work id = next_work + inclusive prefix count of
-    # free lanes (lane order) - 1, spawning while below total_work.
+    # free lanes (lane order) - 1, spawning while below total_work. Work
+    # ids from n_beauty on are the spec lanes of the same (pixel, sample).
     free = ~live | done
     rank = torch.cumsum(free.to(torch.int64), 0) - 1
     new_w = next_work.to(torch.int64) + rank
     can_spawn = free & (new_w < sp.total_work)
     w = torch.clamp(new_w, 0, sp.total_work - 1)
+    if sp.want_spec:
+        new_spec = w >= sp.n_beauty
+        w = torch.where(new_spec, w - sp.n_beauty, w)
     wf = w.to(torch.float32)
-    n = sp.n_pixels
     sr = torch.floor((wf + 0.5) * (1.0 / n))
     sli = wf - sr * n
     sr = torch.where(sli < 0.0, sr - 1.0, torch.where(sli >= n, sr + 1.0, sr))
@@ -555,9 +788,8 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
     so, sd = _raygen(bp, sp.seed, new_li, new_samp, sp.width)
 
     sel = lambda fresh, old: torch.where(can_spawn, fresh, old)
-    one = torch.ones_like(t_hit)
     n_live = (live & active) | can_spawn
-    state_f = torch.stack([
+    rows_f = [
         sel(so[0], torch.where(active, sc_origin[0], o[0])),
         sel(so[1], torch.where(active, sc_origin[1], o[1])),
         sel(so[2], torch.where(active, sc_origin[2], o[2])),
@@ -565,56 +797,77 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
         sel(sd[1], torch.where(active, sc_dir[1], d[1])),
         sel(sd[2], torch.where(active, sc_dir[2], d[2])),
         sel(one, thr[0]), sel(one, thr[1]), sel(one, thr[2]),
-        sel(zero, rad[0]), sel(zero, rad[1]), sel(zero, rad[2])])
-    state_i = torch.stack([
-        n_live.to(torch.int32),
-        torch.where(can_spawn, 0, bounce + 1).to(torch.int32),
-        sel(new_samp, samp).to(torch.int32),
-        sel(new_li, li).to(torch.int32)])
+        sel(zero, rad[0]), sel(zero, rad[1]), sel(zero, rad[2])]
+    rows_i = [n_live, torch.where(can_spawn, 0, bounce + 1),
+              sel(new_samp, samp), sel(new_li, li)]
+    if sp.want_spec:
+        rows_f += [sel(one, attn0[k]) for k in range(3)]
+        rows_i += [sel(new_spec, is_spec), can_spawn.logical_not() & to_refl,
+                   can_spawn.logical_not() & to_refr]
+    state_f = torch.stack(rows_f)
+    state_i = torch.stack([r.to(torch.int32) for r in rows_i])
     total_free = free.sum()
     next_out = torch.clamp(next_work.to(torch.int64) + total_free,
                            max=sp.total_work).to(torch.int32).reshape(1)
     seg_out = (segments + live.sum()).reshape(1)
     live_count = n_live.sum().to(torch.int32).reshape(1)
-    return state_f, state_i, contrib, tgt, next_out, seg_out, live_count
+    tgt = torch.stack([x.to(torch.int32) for x in tgts])
+    return (state_f, state_i, torch.stack(contrib), tgt, next_out, seg_out,
+            live_count)
 
 
 def shade_advance(tables: FusedTables, rec, state_f, state_i, next_work,
                   segments, bparams, sp: StepParams):
     """K3: shade every lane, advance its path, and respawn finished lanes
     from the work counter. CPU tensors take `shade_advance_plain`; CUDA
-    tensors launch csrc/shade_advance.cu. Same signature and results."""
+    tensors launch csrc/shade_advance.cu, the variant that `sp` selects.
+    Same signature and results. `launches` counts beauty-variant launches,
+    `features_launches` those of the fog / AOV / spec variants."""
     if rec.device.type == "cpu":
         return shade_advance_plain(tables, rec, state_f, state_i, next_work,
                                    segments, bparams, sp)
     kernels.require_cuda(rec, state_f, bparams, tables.atlas_rows,
-                         tables.grad_rows, tables.env_rows, dtype=torch.float32)
+                         tables.grad_rows, tables.env_rows, tables.vparams,
+                         dtype=torch.float32)
     kernels.require_cuda(state_i, next_work, dtype=torch.int32)
     kernels.require_cuda(segments, dtype=torch.int64)
     p = rec.shape[1]
+    if (state_f.shape[0], state_i.shape[0]) != state_rows(sp):
+        raise ValueError(f"state rows {state_f.shape[0]}/{state_i.shape[0]}, "
+                         f"expected {state_rows(sp)}")
+    if sp.n_volumes > tables.vparams.shape[0]:
+        raise ValueError("n_volumes exceeds the volume table")
     dev = rec.device
     block = 256
     n_blocks = -(-p // block)
+    n_c, n_t = output_rows(sp)
     out_f = torch.empty_like(state_f)
     out_i = torch.empty_like(state_i)
-    contrib = torch.empty((3, p), dtype=torch.float32, device=dev)
-    tgt = torch.empty((p,), dtype=torch.int32, device=dev)
+    contrib = torch.empty((n_c, p), dtype=torch.float32, device=dev)
+    tgt = torch.empty((n_t, p), dtype=torch.int32, device=dev)
     counts = torch.empty((3, n_blocks), dtype=torch.int32, device=dev)
     next_out = torch.empty((1,), dtype=torch.int32, device=dev)
     seg_out = torch.empty((1,), dtype=torch.int64, device=dev)
     live_count = torch.empty((1,), dtype=torch.int32, device=dev)
+    aov_mask = sum(1 << k for k, name in enumerate(AOVS) if name in sp.aovs)
     kernels.launch(
         "shade_advance_launch", rec, state_f, state_i, p, bparams,
-        tables.atlas_rows, tables.grad_rows, tables.env_rows, sp.seed,
-        sp.sample_offset, sp.n_pixels, float(np.float32(1.0 / sp.n_pixels)),
-        sp.width, float(np.float32(1.0 / sp.width)), sp.total_work,
-        sp.max_depth, sp.env_mode, next_work, segments, out_f, out_i,
-        contrib, tgt, counts, next_out, seg_out, live_count)
-    shade_advance.launches += 1
+        tables.atlas_rows, tables.grad_rows, tables.env_rows, tables.vparams,
+        sp.seed, sp.sample_offset, sp.n_pixels,
+        float(np.float32(1.0 / sp.n_pixels)), sp.width,
+        float(np.float32(1.0 / sp.width)), sp.total_work, sp.max_depth,
+        sp.env_mode, sp.aux, float(sp.z_max), aov_mask, int(sp.use_reflection), int(sp.use_refraction), sp.n_beauty,
+        sp.n_volumes, next_work, segments, out_f, out_i, contrib, tgt, counts,
+        next_out, seg_out, live_count)
+    if sp.features:
+        shade_advance.features_launches += 1
+    else:
+        shade_advance.launches += 1
     return out_f, out_i, contrib, tgt, next_out, seg_out, live_count
 
 
 shade_advance.launches = 0
+shade_advance.features_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -644,27 +897,44 @@ def _host_copy(x: torch.Tensor):
     return ev, host
 
 
-def render_pool_fused(scene, cam, env, seed: int, config, sample_offset=0,
-                      with_stats: bool = False):
-    """Beauty sums f32[n_pixels, 3] of `config.samples_per_pixel` samples
-    from `sample_offset` on, through the fused pool on the scene's device.
+def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
+                      sample_offset=0, with_stats: bool = False):
+    """Per-pixel sums (integrator.SampleBuffers, each f32[n_pixels, 3]) of
+    `config.samples_per_pixel` samples from `sample_offset` on, through the
+    fused pool on the scene's device: beauty, the AOVs and the split passes
+    that `config` enables (zeros for the others). The AOVs sum the camera
+    segments of the samples whose absolute id is below `aux`, the whole
+    render's AOV budget, so that sample chunks add up to one call.
     with_stats also returns {"segments", "steps"}: path segments traced
     (int64 on the device, exact) and steps taken with live lanes."""
+    from .integrator import SampleBuffers
+
     dev = scene.spheres.center.device
     n = config.n_pixels
     spp = config.samples_per_pixel
-    total_work = n * spp
+    aovs = tuple(name for name, on in zip(AOVS, (
+        config.use_albedo, config.use_normal, config.use_z_depth)) if on)
+    want_spec = config.use_reflection or config.use_refraction
+    n_beauty = n * spp
+    total_work = n_beauty * (2 if want_spec else 1)
     p = pool_size(config, total_work)
     tables = build_tables(scene, env, config.env_mode)
     aparams = _aparams(env, dev)
     bparams = _bparams(cam, env, dev)
+    n_volumes = scene.volumes.count if scene.volumes is not None else 0
     sp = StepParams(seed=rng.seed_from_int(seed), sample_offset=int(sample_offset),
                     n_pixels=n, width=config.width, total_work=total_work,
-                    max_depth=config.max_depth, env_mode=config.env_mode)
+                    max_depth=config.max_depth, env_mode=config.env_mode,
+                    aux=int(aux), z_max=float(config.z_depth_max_dist),
+                    aovs=aovs, use_reflection=config.use_reflection,
+                    use_refraction=config.use_refraction, n_beauty=n_beauty,
+                    n_volumes=n_volumes)
 
     # Initial fill: the same (pixel, sample) decode as the respawn.
     w0 = torch.arange(p, dtype=torch.int64, device=dev)
     wc = torch.clamp(w0, max=total_work - 1)
+    spec0 = wc >= n_beauty
+    wc = torch.where(spec0, wc - n_beauty, wc)
     samp_rel = wc // n
     li0 = (wc - samp_rel * n).to(torch.int32)
     samp0 = (sample_offset + samp_rel).to(torch.int32)
@@ -673,15 +943,32 @@ def render_pool_fused(scene, cam, env, seed: int, config, sample_offset=0,
     live0 = (w0 < total_work).to(torch.int32)
     ones = torch.ones((p,), dtype=torch.float32, device=dev)
     zeros = torch.zeros((p,), dtype=torch.float32, device=dev)
-    state_f = torch.stack([*o0, *d0, ones, ones, ones, zeros, zeros, zeros])
-    state_i = torch.stack([live0, torch.zeros_like(live0), samp0, li0])
+    zeros_i = torch.zeros_like(live0)
+    rows_f = [*o0, *d0, ones, ones, ones, zeros, zeros, zeros]
+    rows_i = [live0, zeros_i, samp0, li0]
+    if want_spec:
+        rows_f += [ones, ones, ones]
+        rows_i += [spec0.to(torch.int32), zeros_i, zeros_i]
+    state_f = torch.stack(rows_f)
+    state_i = torch.stack(rows_i)
     next_work = torch.full((1,), min(p, total_work), dtype=torch.int32,
                            device=dev)
     live_count = live0.sum().to(torch.int32).reshape(1)
     segments = torch.zeros((1,), dtype=torch.int64, device=dev)
     steps = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+    # One flat accumulator, channel c at [c * stride, c * stride + n) and
+    # its dummy slot at c * stride + n; each step adds every channel of K3's
+    # outputs with one index_add_.
+    channels = acc_channels(sp)
     stride = n + 1
-    acc = torch.zeros((3 * stride,), dtype=torch.float32, device=dev)
+    acc = torch.zeros((len(channels) * stride,), dtype=torch.float32,
+                      device=dev)
+    src_rows = torch.tensor([c for c, _ in channels], device=dev)
+    tgt_rows = torch.tensor([t for _, t in channels], device=dev)
+    offsets = (torch.arange(len(channels), dtype=torch.int64, device=dev)
+               * stride)[:, None]
+    same_rows = len(channels) == output_rows(sp)[0]
 
     lag = 1 if dev.type == "cpu" else LIVE_LAG
     pending = collections.deque([_host_copy(live_count)])
@@ -699,13 +986,23 @@ def render_pool_fused(scene, cam, env, seed: int, config, sample_offset=0,
         (state_f, state_i, contrib, tgt, next_work, segments,
          live_count) = shade_advance(tables, rec, state_f, state_i, next_work,
                                      segments, bparams, sp)
-        tgt64 = tgt.to(torch.int64)
-        acc.index_add_(0, torch.cat([tgt64, tgt64 + stride, tgt64 + 2 * stride]),
-                       contrib.reshape(-1))
+        idx = tgt.index_select(0, tgt_rows).to(torch.int64) + offsets
+        vals = contrib if same_rows else contrib.index_select(0, src_rows)
+        acc.index_add_(0, idx.reshape(-1), vals.reshape(-1))
         pending.append(_host_copy(live_count))
-    beauty = torch.stack([acc[k * stride:k * stride + n] for k in range(3)],
-                         dim=-1)
+
+    order = ("beauty",) + aovs + (("reflection", "refraction") if want_spec
+                                  else ())
+    zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    def get(name):
+        if name not in order:
+            return zeros3
+        c0 = 3 * order.index(name) * stride
+        return acc[c0:c0 + 3 * stride].reshape(3, stride)[:, :n].T.contiguous()
+
+    out = SampleBuffers(*(get(f) for f in SampleBuffers._fields))
     if with_stats:
-        return beauty, {"segments": int(segments.item()),
-                        "steps": int(steps.item())}
-    return beauty
+        return out, {"segments": int(segments.item()),
+                     "steps": int(steps.item())}
+    return out

@@ -2,17 +2,18 @@
 raytracer_project_tpu/ops/integrator.py).
 
 `render` runs on the card unless the caller asks for another device, by
-one of two engines:
+one of two engines, each with all six buffers and fog:
   * wavefront=True (the default): the fused pooled wavefront
-    (ops/wavefront.py -> ops/fused_step.py), beauty only;
-  * wavefront=False: the chunked integrator below, all six buffers. Each
+    (ops/wavefront.py -> ops/fused_step.py); fog there must have solid
+    (untextured) phase materials;
+  * wavefront=False: the chunked integrator below. Each
     chunk is one wavefront of (pixel, sample) lanes that follows the
     reference's per-sample structure (camera.hpp:454-527): one first hit
     shared by beauty, the AOVs and the split passes, then a bounce loop
     (camera.hpp:928-986) that intersects every lane on every bounce
     through intersect.intersect (K4 on the card) until all lanes are dead.
-The AOVs and split passes on the fused pool and the differentiable mode
-raise NotImplementedError with the ROADMAP item that brings them.
+The differentiable mode and textured fog on the fused pool raise
+NotImplementedError with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..core.constants import (
 )
 from ..models import camera as camera_mod
 from ..models import environment as env_mod
-from . import intersect, shade
+from . import intersect, shade, volumes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +69,8 @@ class RenderConfig:
 
 
 class SampleBuffers(NamedTuple):
-    """Per-pixel sums, all f32[N, 3] (N = W*H, row-major). The fused pool
-    fills only beauty; the other fields are zeros there."""
+    """Per-pixel sums, all f32[N, 3] (N = W*H, row-major). Buffers that the
+    config turns off are zeros."""
 
     beauty: torch.Tensor
     albedo: torch.Tensor
@@ -84,18 +85,6 @@ def _check_supported(config: RenderConfig) -> None:
         raise NotImplementedError(
             "differentiable mode is not ported yet (ROADMAP queue 1: "
             "differentiable mode)")
-    if not config.wavefront:
-        return
-    if config.use_albedo or config.use_normal or config.use_z_depth:
-        raise NotImplementedError(
-            "AOV buffers on the fused pool are not ported yet (ROADMAP queue "
-            "1: fused features -- AOVs, spec passes, fog); use "
-            "wavefront=False or set use_albedo/use_normal/use_z_depth=False")
-    if config.use_reflection or config.use_refraction:
-        raise NotImplementedError(
-            "reflection/refraction passes on the fused pool are not ported "
-            "yet (ROADMAP queue 1: fused features -- AOVs, spec passes, "
-            "fog); use wavefront=False")
 
 
 def trace(scene, env, origin, direction, lane_rng: rng.LaneRng, *,
@@ -125,6 +114,10 @@ def trace(scene, env, origin, direction, lane_rng: rng.LaneRng, *,
         lr = lane_rng.with_ctx(bounce + 1, spec)
         hit = intersect.intersect(scene, origin, direction, T_MIN)
         rec = intersect.make_record(scene, origin, direction, hit)
+        # A fog scatter may come before the surface hit
+        # (constant_medium.hpp:39-77).
+        rec = volumes.apply_to_record(scene.volumes, origin, direction, hit,
+                                      rec, lr)
 
         # Miss: add the environment and retire the lane (camera.hpp:937-941).
         bg = env_mod.background_color(env, direction, env_mode)
@@ -172,6 +165,7 @@ def render_sample(scene, cam, env, seed: int, config: RenderConfig, pixel_ids,
         stats["segments"] += n
     first = intersect.intersect(scene, o, d, T_MIN)
     rec = intersect.make_record(scene, o, d, first)
+    rec = volumes.apply_to_record(scene.volumes, o, d, first, rec, lr0)
     hit_mask = rec.hit
     bg = env_mod.background_color(env, d, config.env_mode)
     trace_kw = dict(max_bounces=config.max_depth - 1, env_mode=config.env_mode,
@@ -277,12 +271,8 @@ def accumulate_samples(scene, cam, env, seed: int, config: RenderConfig,
         return (out, stats) if with_stats else out
     from . import wavefront
 
-    res = wavefront.render_pool(scene, cam, env, seed, config, sample_offset,
-                                with_stats=with_stats)
-    beauty, stats = res if with_stats else (res, None)
-    zeros = torch.zeros_like(beauty)
-    out = SampleBuffers(beauty, zeros, zeros, zeros, zeros, zeros)
-    return (out, stats) if with_stats else out
+    return wavefront.render_pool(scene, cam, env, seed, config, sample_offset,
+                                 with_stats=with_stats)
 
 
 def finalize_buffers(acc: SampleBuffers, config: RenderConfig,

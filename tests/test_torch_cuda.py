@@ -209,3 +209,89 @@ def test_chunked_render_goes_through_k4(cuda, monkeypatch):
         assert img.device.type == "cuda" and img.shape == (18, 32, 3), name
         assert torch.isfinite(img).all(), name
     assert out["beauty"].max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_mode", [tenv.PHYSICAL_SUN, tenv.HDR_MAP])
+def test_shade_advance_features_kernel_matches_plain(inputs, env_mode):
+    """K3's variant with fog, every AOV and both split passes: a random
+    spec-lane state on real hits, 40% of the lanes at bounce 0, with the
+    showcase fog sphere and a dense fog box. A lane may flip a fog flight
+    on an ulp of the card's logf: such lanes are at most 0.5% of the pool;
+    on every other lane integer rows and targets are equal and float rows
+    within 1e-5 abs + 1e-5 rel."""
+    scene, env, od = inputs
+    dev = od.device
+    fog = presets.showcase_scene(use_fog=True, fog_density=0.05).to(dev)
+    tables = fs.build_tables(fog, env.to(dev), env_mode)
+    box = torch.tensor([[1.0, 0, 0, 0, 0, -3.0, 0.0, -2.0, 2.0, 1.5, 3.0,
+                         -1.0 / 0.3, 0.9, 0.6, 0.5, 0.0]], device=dev)
+    tables = tables._replace(vparams=torch.cat([tables.vparams, box]))
+    hit = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds, tables.counts)
+    rec = fs.decode(tables, od, *hit, fs._aparams(env, dev))
+    r = np.random.default_rng(2)
+    state_f = torch.cat([od, torch.as_tensor(np.concatenate([
+        r.uniform(0, 1.5, (6, P)), r.uniform(0.2, 1.0, (3, P))]).astype(
+            np.float32)).to(dev)]).contiguous()
+    state_i = torch.as_tensor(np.stack([
+        r.random(P) < 0.85, np.where(r.random(P) < 0.4, 0, r.integers(1, 13, P)),
+        r.integers(0, 4, P), r.integers(0, 800 * 450, P), r.random(P) < 0.5,
+        r.random(P) < 0.3, r.random(P) < 0.3]).astype(np.int32)).to(dev)
+    cam = tcam.make_camera(image_width=800, image_height=450, **CAM_KW)
+    n_beauty = 800 * 450 * 4
+    sp = fs.StepParams(seed=rng.seed_from_int(7), sample_offset=2,
+                       n_pixels=800 * 450, width=800, total_work=2 * n_beauty,
+                       max_depth=10, env_mode=env_mode, aux=3, z_max=50.0,
+                       aovs=fs.AOVS, use_reflection=True,
+                       use_refraction=True, n_beauty=n_beauty,
+                       n_volumes=tables.vparams.shape[0])
+    args = (rec, state_f, state_i,
+            torch.tensor([n_beauty - 9000], dtype=torch.int32, device=dev),
+            torch.tensor([11], dtype=torch.int64, device=dev),
+            fs._bparams(cam, env, dev), sp)
+    fs.shade_advance.features_launches = 0
+    out = fs.shade_advance(tables, *args)
+    assert fs.shade_advance.features_launches == 1
+    ref = fs.shade_advance_plain(tables, *args)
+    bad = torch.zeros(P, dtype=torch.bool, device=dev)
+    for a, b in zip(out[:4], ref[:4]):
+        assert a.shape == b.shape
+        if a.dtype.is_floating_point:
+            bad |= ~torch.isclose(a, b, rtol=1e-5, atol=1e-5).all(0)
+        else:
+            bad |= (a != b).any(0)
+    for lane in torch.nonzero(bad).flatten().tolist():
+        print(f"lane {lane} differs: bounce {int(state_i[1, lane])}")
+    assert float(bad.float().mean()) <= 0.005
+    if not bool(bad.any()):
+        assert all(torch.equal(a, b) for a, b in zip(out[4:], ref[4:]))
+    assert int(out[5]) == int(ref[5])
+
+
+@pytest.mark.cuda
+def test_features_render_matches_cpu(cuda, monkeypatch):
+    """The fog showcase at 64x36 @ 4 spp with every AOV and both passes,
+    through the default fused pool on the card: the K3 features variant
+    runs, no plain version does, and all six buffers agree with the port's
+    CPU render under the cross-backend budgets (mean |d| <= 0.06, <= 20% of
+    pixels with a channel over 0.05)."""
+    scene = presets.showcase_scene(use_fog=True, fog_density=0.02)
+    cam = tcam.make_camera(image_width=64, image_height=36, **CAM_KW)
+    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
+                                sun_intensity=6.0)
+    cfg = integrator.RenderConfig(width=64, height=36, samples_per_pixel=4,
+                                  use_reflection=True, use_refraction=True)
+    cpu = integrator.render(scene, cam, env, 0, cfg, device="cpu")
+    plain_calls = []
+    for mod, name in ((k1, "closest_hit_plain"), (fs, "decode_plain"),
+                      (fs, "shade_advance_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                            plain_calls.append(_n))
+    fs.shade_advance.features_launches = 0
+    card = integrator.render(scene, cam, env, 0, cfg)
+    assert not plain_calls and fs.shade_advance.features_launches > 0
+    for name, ref in cpu.items():
+        img = card[name].cpu().numpy()
+        d = np.abs(img - ref.numpy())
+        assert np.isfinite(img).all(), name
+        assert d.mean() <= 0.06 and (d.max(-1) > 0.05).mean() <= 0.20, name

@@ -163,7 +163,8 @@ def test_shade_advance_matches_reference(scenes, env_mode):
     _assert_rows(new_f, np.stack(ref[:12]), ())
     np.testing.assert_array_equal(new_i.numpy(), np.stack(ref[12:16]))
     _assert_rows(contrib, np.stack(ref[16:19]), ())
-    np.testing.assert_array_equal(tgt.numpy(), ref[19])
+    assert tgt.shape == (1, p)
+    np.testing.assert_array_equal(tgt[0].numpy(), ref[19])
     assert int(nw) == int(ref[20][0, 0])
     assert int(seg) == int(ref[21][0, 0])
     assert int(lc) == int(ref[22][0, 0])

@@ -81,9 +81,9 @@ def test_fused_render_matches_reference(scene, env_mode):
     out, st = tfs.render_pool_fused(
         scene, tcam.make_camera(image_width=w, image_height=h, **CAM_KW),
         tenv.make_environment(**env_kw), 5,
-        _cfg(w, h, spp, env_mode=env_mode), sample_offset=offset,
+        _cfg(w, h, spp, env_mode=env_mode), 0, sample_offset=offset,
         with_stats=True)
-    d = np.abs(out.numpy() - np.asarray(ref.beauty))
+    d = np.abs(out.beauty.numpy() - np.asarray(ref.beauty))
     assert d.mean() < 1e-3, d.mean()
     assert (d > 3e-3).mean() < 0.005, (d > 3e-3).mean()
     assert abs(st["segments"] - int(rst["segments"])) <= 0.005 * st["segments"]
@@ -100,8 +100,8 @@ def test_sample_chunking_equals_one_call(scene, monkeypatch):
     monkeypatch.setattr(tfs, "_TOTAL_WORK_CAP", 2 * 2 * cfg.n_pixels + 1)
     assert tfs.fused_spp_chunk(scene, cfg, env) == 2
     chunked, st = twf.render_pool(scene, cam, env, 3, cfg, with_stats=True)
-    np.testing.assert_allclose(chunked.numpy(), one.numpy(), rtol=2e-5,
-                               atol=2e-5)
+    np.testing.assert_allclose(chunked.beauty.numpy(), one.beauty.numpy(),
+                               rtol=2e-5, atol=2e-5)
     assert st["steps"] > 0
 
 
@@ -126,19 +126,22 @@ def test_render_defaults_to_cuda(scene):
 
 
 def test_out_of_slice_features_raise(scene):
-    """What stays out of the port: AOVs and split passes on the fused pool,
-    the differentiable mode (on either engine), fog and the BVH."""
+    """What stays out of the port: the differentiable mode (on either
+    engine), textured fog on the fused pool, and the BVH."""
     cam = tcam.make_camera(image_width=8, image_height=4, **CAM_KW)
     env = tenv.make_environment(**ENV_KW)
-    for kw in (dict(use_albedo=True), dict(use_normal=True),
-               dict(use_z_depth=True), dict(use_reflection=True),
-               dict(use_refraction=True), dict(differentiable=True),
+    for kw in (dict(differentiable=True),
                dict(differentiable=True, wavefront=False)):
         cfg = dataclasses.replace(_cfg(8, 4, 1), **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tint.render(scene, cam, env, 0, cfg, device="cpu")
+    b = tscene.SceneBuilder()
+    b.geometry.add_sphere((0.0, 0.0, 0.0), 1.0,
+                          b.materials.lambertian("m", (0.5, 0.5, 0.5)))
+    tex = b.textures.add_checker(0.5, (0.9, 0.9, 0.9), (0.1, 0.1, 0.1))
+    b.add_fog_sphere((0.0, 0.0, 0.0), 3.0, 0.1, (1.0, 1.0, 1.0), texture_id=tex)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscene.SceneBuilder().add_fog_sphere((0.0, 0.0, 0.0), 1.0, 0.1)
+        tint.render(b.build(), cam, env, 0, _cfg(8, 4, 1), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpresets.showcase_scene(with_bvh=True)
 
