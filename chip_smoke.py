@@ -38,6 +38,14 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                all six buffers, with the launch counts read around it, a
                profile, and the albedo AOV against a first-hit chunked
                render of the same frame;
+ 10. probes    the twins of the reference's kernel probes (tools/): P1,
+               K1's scan in four ablations on 262,144 rays (the SASS of
+               each variant checked for the work it keeps, full against
+               K1 bit for bit); P2 and P4, the one-hot row fetch in six
+               layouts; P3, the decode stages d0-d2 and d3 (= K2) on K1's
+               hits of the showcase camera rays. Each variant runs through
+               its entry with the counts read around it, is held against
+               its plain version on the card, and is timed with its bound;
 then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 device JSON line last. Takes no arguments and always runs every phase.
 Exits non-zero without a CUDA device, and outside a checkout of the repo.
@@ -196,12 +204,14 @@ def rows_agree(name, out, ref, int_rows):
     return err
 
 
-def k1_operations(od, t_hit, tables) -> int:
+def k1_operations(od, t_hit, tables, dots=True, epilogues=True,
+                  cull=True) -> int:
     """f32 operations that the closest hit of the rays od f32[6, P] needs on
     these tables: for each ray, each 512-primitive chunk whose AABB the ray
     reaches no later than its closest hit t_hit (the chunks no cull can
-    skip), and in each such chunk 2 per nonzero coefficient (one FMA of the
-    dot) plus one epilogue per primitive."""
+    skip; every chunk without `cull`), and in each such chunk 2 per nonzero
+    coefficient (one FMA of the dot) plus one epilogue per primitive. The
+    P1 ablations count only the dots or only the epilogues."""
     import torch
 
     o, d = od[:3], od[3:]
@@ -211,7 +221,11 @@ def k1_operations(od, t_hit, tables) -> int:
                                   EPILOGUE_OPS):
         for c, c0 in enumerate(range(0, n, 512)):
             w = min(512, n - c0)
-            work = 2 * int(torch.count_nonzero(coeff[:, :, c0:c0 + w])) + epi * w
+            work = (2 * int(torch.count_nonzero(coeff[:, :, c0:c0 + w])) * dots
+                    + epi * w * epilogues)
+            if not cull:
+                total += od.shape[1] * work
+                continue
             lo, hi = bnd[c, :3, None], bnd[c, 3:, None]
             t0, t1 = (lo - o) * inv_d, (hi - o) * inv_d
             tn = torch.minimum(t0, t1).amax(0)
@@ -221,7 +235,49 @@ def k1_operations(od, t_hit, tables) -> int:
     return total
 
 
-def phase_kernels(results: dict) -> None:
+def p1_operations(od, t_full, tables, variant: str) -> int:
+    """f32 operations of P1 `variant` on the rays od with every ray culled
+    on its own: full as K1 (its closest hit t_full); nocull every chunk;
+    nodots the epilogues of every chunk a ray reaches (its best t stays
+    T_MAX); cheapepi the dots of the chunks a ray reaches before its own
+    running minimum of raw group-0 dots, chunk by chunk in scan order."""
+    import torch
+
+    from raytracer_project_tpu_torch.ops import intersect
+
+    if variant != "cheapepi":
+        return k1_operations(od, t_full if variant == "full" else
+                             torch.full_like(t_full, 1e30), tables,
+                             dots=variant != "nodots", cull=variant != "nocull")
+    feats = intersect.ray_features((od[0], od[1], od[2]), (od[3], od[4], od[5]))
+    o, d = od[:3], od[3:]
+    inv_d = 1.0 / torch.where(d.abs() < 1e-30, torch.full_like(d, 1e-30), d)
+    best = torch.full_like(t_full, 1e30)
+    total = 0
+    for coeff, bnd, n in zip(tables.coeffs, tables.bounds, tables.counts):
+        for c, c0 in enumerate(range(0, n, 512)):
+            block = coeff[:, :, c0:min(c0 + 512, n)]
+            lo, hi = bnd[c, :3, None], bnd[c, 3:, None]
+            t0, t1 = (lo - o) * inv_d, (hi - o) * inv_d
+            tn = torch.minimum(t0, t1).amax(0)
+            tf = torch.maximum(t0, t1).amin(0)
+            reach = (tn <= tf) & (tf > 0) & (tn < best) & bool(lo[0] <= hi[0])
+            total += int(reach.sum()) * 2 * int(torch.count_nonzero(block))
+            cmin = (feats @ block[:, 0]).amin(1)
+            best = torch.where(reach, torch.minimum(best, cmin), best)
+    return total
+
+
+def bound_ms(nbytes: int, flops: int = 0):
+    """(the least ms for `nbytes` moved and `flops` f32 operations on the
+    H100, which of the two bounds it)."""
+    by, fl = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(by, fl) * 1e3, "operations" if fl > by else "bytes"
+
+
+def phase_kernels(results: dict):
+    """K1-K3 against their plain versions; returns the ray sets (the pool's
+    camera rays and one bounce of them, f32[6, 131072] each)."""
     import numpy as np
     import torch
 
@@ -379,6 +435,7 @@ def phase_kernels(results: dict) -> None:
     for r in results.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return ray_sets
 
 
 def phase_k4(results: dict) -> None:
@@ -456,12 +513,18 @@ def _counters():
     """Kernel name -> (wrapper, attribute holding its launch count)."""
     from raytracer_project_tpu_torch.ops import closest_hit as k1
     from raytracer_project_tpu_torch.ops import fused_step as fs
+    from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
+    from raytracer_project_tpu_torch.tools import probe_decode as pd
+    from raytracer_project_tpu_torch.tools import probe_onehot as po
 
     return {"closest_hit": (k1.closest_hit, "launches"),
             "decode": (fs.decode, "launches"),
             "shade_advance": (fs.shade_advance, "launches"),
             "shade_advance_features": (fs.shade_advance, "features_launches"),
-            "closest_hit_feats": (k1.closest_hit_feats, "launches")}
+            "closest_hit_feats": (k1.closest_hit_feats, "launches"),
+            "ablate": (pa.ablate, "launches"),
+            "onehot_fetch": (po.onehot_fetch, "launches"),
+            "decode_stage": (pd.decode_stage, "launches")}
 
 
 def _reset_counters():
@@ -889,6 +952,277 @@ def phase_features_full(results: dict) -> None:
     _profile("800x450@32spp fused features", inputs, _features_cfg(800, 450, 32))
 
 
+# --- phase 10: the kernel probes ----------------------------------------------
+
+def sass_opcodes(source: str) -> dict:
+    """Opcode counts of each kernel of the built csrc/<source>.cu, from
+    cuobjdump -sass (mangled kernel name -> {opcode: count})."""
+    import re
+    import shutil
+
+    from raytracer_project_tpu_torch import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(kernels.BUILD_DIR /
+                                              f"lib{source}.so")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if m and cur is not None:
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+    return counts
+
+
+def _probe_p1(results: dict) -> None:
+    """P1 on the probe's 262,144 rays, each variant through its entry
+    (`run`) with the counts read around it, against its plain version
+    grouped per warp, timed, with its operation bound; full against K1."""
+    import torch
+
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+    from raytracer_project_tpu_torch.ops import fused_step as fs
+    from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
+
+    dev = torch.device("cuda")
+    scene, _, env = _showcase(8, 8)
+    tables = fs.build_tables(scene, env, tenv.PHYSICAL_SUN)
+    tab = (tables.coeffs, tables.bounds, tables.counts)
+    od = pa.make_rays(pa.P, 0, dev)
+    # The SASS of each variant: the work the probe takes away is gone, and
+    # only that work (FFMA: the dots; MUFU: the epilogues' sqrt/rcp).
+    sass = {name: ops for name, ops in sass_opcodes("probe_a1_ablate").items()
+            if "ablate_kernel" in name}
+    ops = {v: next(o for name, o in sass.items() if f"ILi{i}E" in name)
+           for i, v in enumerate(pa.VARIANTS)}
+    for v, o in ops.items():
+        log(f"  SASS ablate_kernel<{v}>: {sum(o.values())} instructions, "
+            f"FFMA {o.get('FFMA', 0)}, MUFU {o.get('MUFU', 0)}, "
+            f"FSETP {o.get('FSETP', 0)}")
+    # 16-term dots for G = 2 + 4 + 6 outputs: 192 FMAs per primitive.
+    check(ops["cheapepi"].get("FFMA", 0) >= 192, "cheapepi lost its dots")
+    check(ops["nodots"].get("MUFU", 0) >= ops["full"].get("MUFU", 0),
+          "nodots lost its epilogues")
+    nbytes = pa.P * (6 * 4 + 3 * 4) + sum(
+        4 * (c.numel() + b.numel()) for c, b in zip(tables.coeffs, tables.bounds))
+    for v in pa.VARIANTS:
+        _reset_counters()
+        entry = pa.run(v, od, *tab)
+        launches = pa.ablate.launches
+        check(launches > 0, f"P1 {v}: not launched")
+        t = pa.ablate(od, 0.0, *tab, v)[0]
+        ref = pa.ablate_plain(od, 0.0, *tab, v, pa.WARP)[0]
+        torch.cuda.synchronize()
+        stats = pa.compare(v, t, ref)
+        log(f"  P1 {v} vs plain: {stats}")
+        check(stats["ok"], f"P1 {v} disagrees with its plain version")
+        if v == "full":
+            t_full = t
+            tk = k1.closest_hit(od, 0.0, *tab)[0]
+            lanes = torch.nonzero(t != tk).flatten()
+            for i in lanes[:8].tolist():
+                log(f"    lane {i}: P1 full t {float(t[i]):.9g} K1 t "
+                    f"{float(tk[i]):.9g}")
+            log(f"  P1 full vs K1 at tmin 0: {lanes.numel()} lanes differ")
+            check(lanes.numel() == 0, "P1 full differs from K1")
+        ms = time_ms(f"P1 {v}", lambda: pa.ablate(od, 0.0, *tab, v))
+        plain_ms = time_ms(f"P1 {v} plain", lambda: pa.ablate_plain(
+            od, 0.0, *tab, v, pa.WARP), n=3, rounds=3)
+        flops = p1_operations(od, t_full, tables, v)
+        bound, by = bound_ms(nbytes, flops)
+        log(f"  P1.{v}: {ms:.4f} ms/launch (entry {entry['ms']:.4f}), plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+            f"{flops / pa.P:.0f} operations per ray), launches {launches}")
+        check(ms >= bound, f"P1 {v} runs below its bound: work was dropped")
+        results[f"P1.{v}"] = dict(
+            name=f"P1.{v}", route="cuda",
+            source="raytracer_project_tpu_torch/csrc/probe_a1_ablate.cu",
+            replaces="tools/probe_a1_ablate.py:43", launches=launches,
+            max_abs_err=stats["max_abs_err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _probe_onehot(results: dict) -> None:
+    """P2 and P4's five layouts at the pool's width: each through its entry
+    (`main`) with the counts read around it, against the plain version on a
+    random table and indices in [-2, n_rows + 2) (exact), timed there and
+    at the probes' 8,192 lanes, beside index_select + add."""
+    import torch
+
+    from raytracer_project_tpu_torch.tools import probe_onehot as po
+    from raytracer_project_tpu_torch.tools import probe_onehot2 as po2
+
+    dev = torch.device("cuda")
+    n_rows, n_out = 1536, 24
+    cases = [("P2", "col", lambda: po.main(2048, 512, n_rows, n_out, P_MAIN))]
+    cases += [(f"P4.{m}", m, lambda m=m: po2.main(m, n_out, 2048, n_rows, P_MAIN))
+              for m in po.MODES]
+    for name, mode, entry in cases:
+        _reset_counters()
+        entry()
+        launches = po.onehot_fetch.launches
+        check(launches > 0, f"{name}: not launched")
+        plain, transposed, matrix = po.MODES[mode]
+        sizes = {}
+        for p in (P_MAIN, 8192):
+            t, idx, table = po.make_inputs(n_rows, p, transposed, seed=1,
+                                           device=dev)
+            out = po.onehot_fetch(t, idx, table, n_out, mode)
+            ref = po.onehot_fetch_plain(t, idx, table, n_out, mode)
+            torch.cuda.synchronize()
+            bad = sum(int((a != b).sum()) for a, b in zip(out, ref))
+            check(bad == 0, f"{name} p={p}: {bad} values differ")
+            # The library's fetch: index_select of the table with a zero
+            # row appended, indices mapped beforehand (outside: that row),
+            # then the add of t; it fetches all 28 columns.
+            row = idx.to(torch.int32).long()
+            row = torch.where((row >= 0) & (row < n_rows), row, n_rows)
+            if plain:
+                ks = torch.arange(n_out, device=dev, dtype=torch.float32)[:, None]
+                lib = lambda: torch.add(t, ks)
+            elif transposed:
+                tab1 = torch.cat([table, table.new_zeros(28, 1)], 1)
+                lib = lambda: torch.index_select(tab1, 1, row).add_(t)
+            else:
+                tab1 = torch.cat([table, table.new_zeros(1, 28)])
+                lib = lambda: torch.index_select(tab1, 0, row).add_(t[:, None])
+            fn = lambda: po.onehot_fetch(t, idx, table, n_out, mode)
+            sizes[p] = dict(
+                ms=time_ms(f"{name} p={p}", fn),
+                plain_ms=time_ms(f"{name} plain p={p}", lambda: po.onehot_fetch_plain(
+                    t, idx, table, n_out, mode), rounds=3),
+                library_ms=time_ms(f"{name} library p={p}", lib),
+                bound=bound_ms(p * (4 * (1 if plain else 2) + 4 * n_out)
+                               + (0 if plain else table.numel() * 4)))
+        r = sizes[P_MAIN]
+        log(f"  {name}: exact at {P_MAIN} and 8192 lanes; {r['ms']:.5f} "
+            f"ms/launch, plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.5f}, bound {r['bound'][0]:.5f} ms; at 8192: "
+            f"{sizes[8192]['ms']:.5f}, library {sizes[8192]['library_ms']:.5f},"
+            f" bound {sizes[8192]['bound'][0]:.5f}; launches {launches}")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="raytracer_project_tpu_torch/csrc/probe_onehot.cu",
+            replaces=("tools/probe_onehot.py:22" if name == "P2"
+                      else "tools/probe_onehot2.py:52"),
+            launches=launches, max_abs_err=0.0, ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"])
+
+
+def _probe_decode(results: dict) -> None:
+    """P3's stages d0-d2 and d3 (= K2) on K1's hits of the showcase camera
+    rays at the pool's width: each through its entry (`run`) with the counts
+    read around it, against its plain version, timed there and at the
+    probe's 8,192 lanes, with its byte bound."""
+    import torch
+
+    from raytracer_project_tpu_torch.ops import fused_step as fs
+    from raytracer_project_tpu_torch.tools import probe_decode as pd
+
+    inputs = {p: pd.camera_hits(p) for p in (P_MAIN, 8192)}
+    k2_int = (fs._RO_HIT, fs._RO_FRONT, fs._RO_MTYPE, fs._RO_GU, fs._RO_GV,
+              fs._RO_HASB, fs._RO_TEXROW, fs._RO_BUMPROW, fs._RO_ENVROW)
+    for v in ("d0", "d1", "d2", "d3"):
+        _reset_counters()
+        pd.run(v, *inputs[P_MAIN])
+        counter = pd.decode_stage if v in pd.STAGES else fs.decode
+        launches = counter.launches
+        check(launches > 0, f"P3 {v}: not launched")
+        if v in pd.STAGES:
+            stage = pd.STAGES[v]
+            plain = lambda tables, od, hit, ap: pd.decode_stage_plain(
+                stage, tables, od, *hit)
+            exact = (tuple(range(24)) if stage == 0 else
+                     tuple(k for k in range(24) if k not in range(2, 11)
+                           and k not in (12, 13)))
+        else:
+            plain = lambda tables, od, hit, ap: fs.decode_plain(
+                tables, od, *hit, ap)
+            exact = k2_int
+        ms, err = {}, 0.0
+        for p, args in inputs.items():
+            fn = pd.variant_fn(v, *args)
+            out, ref = fn(), plain(*args)
+            torch.cuda.synchronize()
+            err = max(err, rows_agree(f"P3 {v} p={p}", out, ref, exact))
+            ms[p] = time_ms(f"P3 {v} p={p}", fn)
+        plain_ms = time_ms(f"P3 {v} plain", lambda: plain(*inputs[P_MAIN]),
+                           rounds=3)
+        per_lane = (12 if v == "d0" else 36) + 4 * fs._RO_ROWS
+        bound, by = bound_ms(P_MAIN * per_lane)
+        log(f"  P3.{v}: {ms[P_MAIN]:.5f} ms/launch ({ms[8192]:.5f} at 8192 "
+            f"lanes), plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}, "
+            f"{per_lane} B/lane), max |d| {err:.3g}, launches {launches}")
+        results[f"P3.{v}"] = dict(
+            name=f"P3.{v}", route="cuda",
+            source=("raytracer_project_tpu_torch/csrc/probe_decode.cu"
+                    if v in pd.STAGES else
+                    "raytracer_project_tpu_torch/csrc/decode.cu"),
+            replaces="tools/probe_decode.py:55", launches=launches,
+            max_abs_err=err, ms=ms[P_MAIN], plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+    log("  P3 d3w4096 and d3u are d3 on the card (Mosaic tiling knobs)")
+
+
+def _k1_split(od) -> None:
+    """K1's time split by P1's variants on the main path's own rays (the
+    pool's bounce set, tmin T_MIN): full - cheapepi ~ the epilogues, full -
+    nodots ~ the dots, nocull - full what the cull saves; with each
+    variant's operations per ray. Logged only."""
+    import torch
+
+    from raytracer_project_tpu_torch.core.constants import T_MIN
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+    from raytracer_project_tpu_torch.ops import fused_step as fs
+    from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
+
+    scene, _, env = _showcase(8, 8)
+    tables = fs.build_tables(scene, env, tenv.PHYSICAL_SUN)
+    tab = (tables.coeffs, tables.bounds, tables.counts)
+    t_k1 = k1.closest_hit(od, T_MIN, *tab)[0]
+    ms = {"K1": time_ms("K1 (bounce set)", lambda: k1.closest_hit(
+        od, T_MIN, *tab))}
+    for v in pa.VARIANTS:
+        t = pa.ablate(od, T_MIN, *tab, v)[0]
+        if v in ("full", "nocull"):
+            n_diff = int((t != t_k1).sum())
+            log(f"  P1 {v} vs K1 on the bounce set: {n_diff} lanes differ")
+            check(n_diff == 0, f"P1 {v} differs from K1 on the bounce set")
+        ms[v] = time_ms(f"P1 {v} (bounce set)", lambda: pa.ablate(
+            od, T_MIN, *tab, v))
+        flops = p1_operations(od, t_k1, tables, v)
+        log(f"  P1 {v} on the bounce set: {ms[v]:.4f} ms/launch "
+            f"({ms[v] / ms['K1']:.3f} of K1), {flops / od.shape[1]:.0f} "
+            f"operations per ray")
+    f = ms["full"]
+    log(f"  K1 split ({od.shape[1]} bounce lanes): full {f:.4f} ms; "
+        f"full - cheapepi {f - ms['cheapepi']:.4f} ms "
+        f"({(f - ms['cheapepi']) / f:.3f}, ~epilogues); full - nodots "
+        f"{f - ms['nodots']:.4f} ms ({(f - ms['nodots']) / f:.3f}, ~dots); "
+        f"nocull - full {ms['nocull'] - f:.4f} ms "
+        f"({(ms['nocull'] - f) / f:.3f}, what the cull saves)")
+
+
+def phase_probes(results: dict, main_rays) -> None:
+    """The four TPU probes' twins: P1 (K1 ablations, also split on the main
+    path's bounce rays `main_rays`), P2/P4 (one-hot row fetch layouts), P3
+    (decode bisection)."""
+    log("probes:")
+    _probe_p1(results)
+    _k1_split(main_rays)
+    _probe_onehot(results)
+    _probe_decode(results)
+
+
 def main() -> int:
     import torch
 
@@ -912,7 +1246,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     results: dict = {}
-    phase_kernels(results)
+    ray_sets = phase_kernels(results)
     phase_k4(results)
     phase_smoke()
     phase_full(results)
@@ -921,6 +1255,7 @@ def main() -> int:
     phase_k3_features(results)
     phase_features_smoke()
     phase_features_full(results)
+    phase_probes(results, ray_sets["bounce"])
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("closest_hit", "decode", "shade_advance")
+SOURCES = ("closest_hit", "decode", "shade_advance", "probe_a1_ablate",
+           "probe_onehot", "probe_decode")
 
 # --fmad=false keeps every a*b+c as a rounded product and a rounded sum,
 # the arithmetic of the plain PyTorch versions; fmaf() stays an FMA.
@@ -32,8 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# C entry point -> (source, argument types); every entry returns the
-# launch's cudaGetLastError() as int.
+# C entry point -> (source, argument types, the stream last); every entry
+# returns the launch's cudaGetLastError() as int.
 SIGNATURES = {
     "closest_hit_od": ("closest_hit", [_P, _I, _F] + [_P, _I, _P, _I] * 3
                        + [_P, _P, _P, _P]),
@@ -45,6 +46,12 @@ SIGNATURES = {
                              [_P, _P, _P, _I, _P, _P, _P, _P, _P, _U, _I, _I,
                               _F, _I, _F, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                               _I] + [_P] * 11),
+    "probe_a1_ablate": ("probe_a1_ablate", [_I, _P, _I, _F]
+                        + [_P, _I, _P, _I] * 3 + [_I, _P, _P, _P, _P]),
+    "probe_onehot": ("probe_onehot", [_I, _I, _I, _P, _P, _P, _I, _I, _P, _P,
+                                      _I, _P]),
+    "probe_decode_stage": ("probe_decode", [_I, _P, _P, _P, _P, _I, _P, _I, _P,
+                                            _I, _P, _I, _I, _I, _I, _P, _P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -73,10 +80,11 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
-def build_all(force: bool = False) -> float:
-    """Compile every stale source in parallel; returns the wall seconds.
-    The compiler's resource report goes to build/torch_kernels/<name>.log."""
-    todo = [n for n in SOURCES if force or _stale(n)]
+def build_all(force: bool = False, names=SOURCES) -> float:
+    """Compile every stale source of `names` in parallel; returns the wall
+    seconds (0.0 when none was stale). The compiler's resource report goes
+    to build/torch_kernels/<name>.log."""
+    todo = [n for n in names if force or _stale(n)]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -124,6 +132,10 @@ def launch(entry: str, *args) -> None:
     fn.restype = ctypes.c_int
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     vals.append(torch.cuda.current_stream().cuda_stream)
+    if len(vals) != len(argtypes):
+        # ctypes would pass the surplus as 32-bit ints, cutting pointers.
+        raise TypeError(f"{entry}: {len(vals)} arguments with the stream, "
+                        f"its signature has {len(argtypes)}")
     check(fn(*vals), entry)
 
 

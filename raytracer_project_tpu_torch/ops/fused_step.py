@@ -230,12 +230,13 @@ def _aparams(env, device) -> torch.Tensor:
         torch.zeros((), dtype=torch.float32, device=device)])
 
 
-def decode_plain(tables: FusedTables, od, t, idx, typ, aparams):
-    """Plain PyTorch K2 (reference _decode_kernel): [24, P] f32 rows."""
+def decode_records_plain(tables: FusedTables, od, t, idx, typ):
+    """The first part of K2's plain version: the packed primitive row of
+    each closest hit (f32 [P, 28]) and the shading record decoded from it,
+    (p, normal, tangent, bitangent, front, u, v, mat)."""
     o = (od[0], od[1], od[2])
     d = (od[3], od[4], od[5])
-    hit = t < T_MAX
-    t_safe = torch.where(hit, t, 1.0)
+    t_safe = torch.where(t < T_MAX, t, 1.0)
     n_s, n_t, _ = tables.counts
     is_tri = typ == PRIM_TRIANGLE
     is_box = typ == PRIM_BOX
@@ -263,6 +264,14 @@ def decode_plain(tables: FusedTables, od, t, idx, typ, aparams):
         bp = _box_record_soa(sel_cols(is_box, _BOX_DEFAULT_ROW, 13), o, d,
                              t_safe)
         parts = tuple(sel(is_box, parts[i], bp[i]) for i in range(8))
+    return grow, parts
+
+
+def decode_plain(tables: FusedTables, od, t, idx, typ, aparams):
+    """Plain PyTorch K2 (reference _decode_kernel): [24, P] f32 rows."""
+    d = (od[3], od[4], od[5])
+    hit = t < T_MAX
+    _, parts = decode_records_plain(tables, od, t, idx, typ)
     p, normal, tangent, bitangent, front, u, v, mat = parts
 
     mrow = tables.mattab[torch.clamp(mat, 0.0, tables.mattab.shape[0] - 1)

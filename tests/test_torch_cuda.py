@@ -19,6 +19,9 @@ from raytracer_project_tpu_torch.ops import closest_hit as k1
 from raytracer_project_tpu_torch.ops import fused_step as fs
 from raytracer_project_tpu_torch.ops import integrator
 from raytracer_project_tpu_torch.ops import intersect
+from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
+from raytracer_project_tpu_torch.tools import probe_decode as pd
+from raytracer_project_tpu_torch.tools import probe_onehot as po
 
 torch.set_num_threads(2)
 
@@ -77,23 +80,6 @@ def _hit_budgets(tk, ik, yk, tp, ip, yp):
     rel = ((tk - tp).abs() / tp.abs().clamp(min=1e-3))[same]
     assert float((rel > 5e-3).float().mean()) <= 0.03
     assert float(rel.max()) <= 5e-2
-
-
-@pytest.mark.cuda
-def test_closest_hit_feats_kernel_matches_plain(inputs):
-    """K4 on the same rays as K1, from their prebuilt feature rows: the
-    same budgets against its plain version, and against K1."""
-    scene, env, od = inputs
-    tables = fs.build_tables(scene, env.to(od.device), tenv.PHYSICAL_SUN)
-    feats = intersect.ray_feature_rows(od[:3].T, od[3:].T).contiguous()
-    k1.closest_hit_feats.launches = 0
-    out = k1.closest_hit_feats(feats, 1e-3, tables.coeffs, tables.bounds,
-                               tables.counts)
-    assert k1.closest_hit_feats.launches == 1
-    ref = k1.closest_hit_feats_plain(feats, 1e-3, tables.coeffs, tables.counts)
-    _hit_budgets(*out, *ref)
-    _hit_budgets(*out, *k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
-                                       tables.counts))
 
 
 @pytest.mark.cuda
@@ -295,3 +281,65 @@ def test_features_render_matches_cpu(cuda, monkeypatch):
         d = np.abs(img - ref.numpy())
         assert np.isfinite(img).all(), name
         assert d.mean() <= 0.06 and (d.max(-1) > 0.05).mean() <= 0.20, name
+
+
+# --- the kernel probes (raytracer_project_tpu_torch/tools) -----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", pa.VARIANTS)
+def test_ablation_kernel_matches_plain(cuda, variant):
+    """P1 on 16,384 of the probe's rays against its plain version grouped
+    per warp (pa.compare's budgets); `full` equals K1's t bit for bit (the
+    same fmaf dots and per-warp cull over the same columns) and `nocull`."""
+    scene = presets.showcase_scene().to(cuda)
+    coeffs, bounds, counts = pa.scene_tables(scene)
+    od = pa.make_rays(16_384, 1, cuda)
+    pa.ablate.launches = 0
+    t, idx, typ = pa.ablate(od, 0.0, coeffs, bounds, counts, variant)
+    assert pa.ablate.launches == 1
+    assert not idx.any() and not typ.any()
+    ref = pa.ablate_plain(od, 0.0, coeffs, bounds, counts, variant, pa.WARP)[0]
+    stats = pa.compare(variant, t, ref)
+    assert stats["ok"], stats
+    if variant == "full":
+        tk = k1.closest_hit(od, 0.0, coeffs, bounds, counts)[0]
+        assert torch.equal(t, tk)
+        nocull = pa.ablate(od, 0.0, coeffs, bounds, counts, "nocull")[0]
+        assert torch.equal(t, nocull)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", tuple(po.MODES))
+def test_onehot_fetch_kernel_matches_plain(cuda, mode):
+    """P2/P4's fetch on a random table and indices in [-2, n_rows + 2):
+    every output equal to the plain version's, bit for bit."""
+    t, idx, table = po.make_inputs(1536, 65_536, bool(po.MODES[mode][1]),
+                                   seed=2, device=cuda)
+    po.onehot_fetch.launches = 0
+    out = po.onehot_fetch(t, idx, table, 24, mode)
+    assert po.onehot_fetch.launches == 1
+    ref = po.onehot_fetch_plain(t, idx, table, 24, mode)
+    if po.MODES[mode][2]:
+        assert out.shape == (24, 65_536) and torch.equal(out, ref)
+    else:
+        assert len(out) == 24
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_decode_stage_kernel_matches_plain(cuda, stage):
+    """P3's stages on K1's hits of the showcase camera rays: flags, t, the
+    material id and the fetched columns equal, the decoded floats within
+    1e-5 abs + 1e-5 rel (K2's budget)."""
+    tables, od, hit, _ = pd.camera_hits(65_536, cuda)
+    pd.decode_stage.launches = 0
+    out = pd.decode_stage(stage, tables, od, *hit)
+    assert pd.decode_stage.launches == 1
+    ref = pd.decode_stage_plain(stage, tables, od, *hit)
+    float_rows = () if stage == 0 else tuple(range(2, 11)) + (12, 13)
+    for k in range(fs._RO_ROWS):
+        if k in float_rows:
+            torch.testing.assert_close(out[k], ref[k], rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(out[k], ref[k]), k
