@@ -13,7 +13,9 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                camera rays and one bounce of their scattered rays; K4:
                360,000 lanes, the 800x450 camera rays and one scatter of
                them), the closest hits also against the exact brute-force
-               oracle, and K4 against K1;
+               oracle, K4 against K1, and K1 and K4 bit for bit against
+               the dense 16-term scan of the first port (every lane with
+               finite features; the others counted), both designs timed;
   3. smoke     render the 64x36 @ 2 spp showcase (seed 0) through
                integrator.render and compare it with the reference's CPU
                golden under the cross-backend budgets;
@@ -204,38 +206,73 @@ def rows_agree(name, out, ref, int_rows):
     return err
 
 
-def k1_operations(od, t_hit, tables, dots=True, epilogues=True,
-                  cull=True) -> int:
-    """f32 operations that the closest hit of the rays od f32[6, P] needs on
-    these tables: for each ray, each 512-primitive chunk whose AABB the ray
-    reaches no later than its closest hit t_hit (the chunks no cull can
-    skip; every chunk without `cull`), and in each such chunk 2 per nonzero
-    coefficient (one FMA of the dot) plus one epilogue per primitive. The
-    P1 ablations count only the dots or only the epilogues."""
+def _reachable_work(od, t_hit, bounds, counts, width, work, cull=True) -> int:
+    """Sum over the rays od f32[6, P] of work(table, first, rows) for each
+    `width`-primitive tile whose AABB (bounds) the ray reaches no later
+    than its closest hit t_hit: the tiles no cull can skip (every tile
+    without `cull`)."""
     import torch
 
     o, d = od[:3], od[3:]
     inv_d = 1.0 / torch.where(d.abs() < 1e-30, torch.full_like(d, 1e-30), d)
     total = 0
-    for coeff, bnd, n, epi in zip(tables.coeffs, tables.bounds, tables.counts,
-                                  EPILOGUE_OPS):
-        for c, c0 in enumerate(range(0, n, 512)):
-            w = min(512, n - c0)
-            work = (2 * int(torch.count_nonzero(coeff[:, :, c0:c0 + w])) * dots
-                    + epi * w * epilogues)
+    for i, (bnd, n) in enumerate(zip(bounds, counts)):
+        for c, c0 in enumerate(range(0, n, width)):
+            w = work(i, c0, min(width, n - c0))
             if not cull:
-                total += od.shape[1] * work
+                total += od.shape[1] * w
                 continue
             lo, hi = bnd[c, :3, None], bnd[c, 3:, None]
             t0, t1 = (lo - o) * inv_d, (hi - o) * inv_d
             tn = torch.minimum(t0, t1).amax(0)
             tf = torch.maximum(t0, t1).amin(0)
             reach = (tn <= tf) & (tf > 0) & (tn <= t_hit)
-            total += int(reach.sum()) * work
+            total += int(reach.sum()) * w
     return total
 
 
-def p1_operations(od, t_full, tables, variant: str) -> int:
+def k1_operations(od, t_hit, tab, dots=True, epilogues=True, cull=True,
+                  width=512) -> int:
+    """f32 operations that the closest hit of the rays od f32[6, P] needs on
+    the dense tables tab = (coeffs, `width`-wide AABBs, counts): for each
+    ray, each `width`-primitive tile it reaches no later than its closest
+    hit, and in each such tile 2 per nonzero coefficient (one FMA of the
+    dot) plus one epilogue per primitive. The K1 and K4 bounds count it at
+    the tables' finest AABBs (`fine_tables`, width MM_FINE = 128); P1,
+    whose kernel culls 512-wide chunks, at 512, and its ablations count
+    only the dots or only the epilogues."""
+    import torch
+
+    coeffs, bounds, counts = tab
+    return _reachable_work(
+        od, t_hit, bounds, counts, width,
+        lambda i, c0, w: (2 * int(torch.count_nonzero(coeffs[i][:, :, c0:c0 + w]))
+                          * dots + EPILOGUE_OPS[i] * w * epilogues), cull)
+
+
+def fine_tables(scene, scan):
+    """(the dense coefficient tables, their MM_FINE-wide AABBs, counts): the
+    finest tiles a cull could skip, on which `k1_operations` counts the K1
+    and K4 bounds."""
+    mm = scene.mm
+    return (scan.coeffs, (mm.sphere_bounds, mm.tri_bounds, mm.box_bounds),
+            scan.counts)
+
+
+def k1_structural_operations(od, t_hit, scan) -> int:
+    """f32 operations the compact-row scan does on the rays beyond what a
+    cull can skip: for each tile of scan.bounds a ray reaches no later than
+    its closest hit, 2 per structural slot and one epilogue per primitive
+    (`k1_operations` counts the nonzero coefficients instead)."""
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+
+    slots = [sum(map(len, s)) for s in k1.SLOTS]     # 9, 19, 21
+    return _reachable_work(
+        od, t_hit, scan.bounds, scan.counts, k1.SCAN_TILE,
+        lambda i, c0, w: (2 * slots[i] + EPILOGUE_OPS[i]) * w)
+
+
+def p1_operations(od, t_full, tab, variant: str) -> int:
     """f32 operations of P1 `variant` on the rays od with every ray culled
     on its own: full as K1 (its closest hit t_full); nocull every chunk;
     nodots the epilogues of every chunk a ray reaches (its best t stays
@@ -247,14 +284,14 @@ def p1_operations(od, t_full, tables, variant: str) -> int:
 
     if variant != "cheapepi":
         return k1_operations(od, t_full if variant == "full" else
-                             torch.full_like(t_full, 1e30), tables,
+                             torch.full_like(t_full, 1e30), tab,
                              dots=variant != "nodots", cull=variant != "nocull")
     feats = intersect.ray_features((od[0], od[1], od[2]), (od[3], od[4], od[5]))
     o, d = od[:3], od[3:]
     inv_d = 1.0 / torch.where(d.abs() < 1e-30, torch.full_like(d, 1e-30), d)
     best = torch.full_like(t_full, 1e30)
     total = 0
-    for coeff, bnd, n in zip(tables.coeffs, tables.bounds, tables.counts):
+    for coeff, bnd, n in zip(*tab):
         for c, c0 in enumerate(range(0, n, 512)):
             block = coeff[:, :, c0:min(c0 + 512, n)]
             lo, hi = bnd[c, :3, None], bnd[c, 3:, None]
@@ -266,6 +303,30 @@ def p1_operations(od, t_full, tables, variant: str) -> int:
             cmin = (feats @ block[:, 0]).amin(1)
             best = torch.where(reach, torch.minimum(best, cmin), best)
     return total
+
+
+def equal_on_finite(name, new, ref, feats) -> int:
+    """new and ref, (t, idx, type) each, equal bit for bit on every lane
+    whose features 0-12 (feats f32[>=13, N]) are finite; returns the count
+    of the other lanes, which are left out (a dense chain turns an inf
+    feature into NaN through inf * 0, the compact chain does not)."""
+    import torch
+
+    finite = torch.isfinite(feats[:13]).all(0)
+    bad = torch.zeros_like(finite)
+    for a, b in zip(new, ref):
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad |= finite & (a != b)
+    n_bad, n_other = int(bad.sum()), int((~finite).sum())
+    log(f"  {name}: {n_bad} of {finite.numel()} lanes differ; {n_other} "
+        f"lanes with non-finite features left out")
+    for i in torch.nonzero(bad).flatten()[:4].tolist():
+        log(f"    lane {i}: t {float(new[0][i]):.9g} vs {float(ref[0][i]):.9g}, "
+            f"idx {int(new[1][i])} vs {int(ref[1][i])}, type {int(new[2][i])} "
+            f"vs {int(ref[2][i])}")
+    check(n_bad == 0, f"{name}: {n_bad} lanes differ")
+    return n_other
 
 
 def bound_ms(nbytes: int, flops: int = 0):
@@ -288,12 +349,14 @@ def phase_kernels(results: dict):
     from raytracer_project_tpu_torch.ops import closest_hit as k1
     from raytracer_project_tpu_torch.ops import fused_step as fs
     from raytracer_project_tpu_torch.ops import intersect
+    from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
 
     dev = torch.device("cuda")
     scene = presets.showcase_scene().to(dev)
     cam = tcam.make_camera(image_width=800, image_height=450, **CAM_KW)
     env = tenv.make_environment(**ENV_KW)
     tables = fs.build_tables(scene, env, tenv.PHYSICAL_SUN)
+    dense = pa.scene_tables(scene)    # (coeffs, 512-wide AABBs, counts)
     aparams = fs._aparams(env, dev)
     bparams = fs._bparams(cam, env, dev)
     n = 800 * 450
@@ -315,7 +378,7 @@ def phase_kernels(results: dict):
     next_work = torch.tensor([P_MAIN], dtype=torch.int32, device=dev)
     segments = torch.zeros(1, dtype=torch.int64, device=dev)
     rec0 = fs.decode_plain(tables, state_f[:6], *k1.closest_hit_plain(
-        state_f[:6], 1e-3, tables.coeffs, tables.counts), aparams)
+        state_f[:6], 1e-3, tables.scan.coeffs, tables.scan.counts), aparams)
     step1 = fs.shade_advance_plain(tables, rec0, state_f, state_i, next_work,
                                    segments, bparams, sp)
     ray_sets = {"camera": state_f[:6].contiguous(),
@@ -323,14 +386,13 @@ def phase_kernels(results: dict):
     log(f"kernels: {P_MAIN} lanes; bounce set live lanes "
         f"{int((step1[1][0] > 0).sum())}")
 
-    # K1 against its plain version and against the exact oracle.
+    # K1 against its plain version, the exact oracle and the dense scan.
     k1_err = 0.0
     hits = {}
     for name, od in ray_sets.items():
-        tk, ik, yk = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
-                                    tables.counts)
-        tp, ip, yp = k1.closest_hit_plain(od, 1e-3, tables.coeffs,
-                                          tables.counts)
+        tk, ik, yk = k1.closest_hit(od, 1e-3, tables.scan)
+        tp, ip, yp = k1.closest_hit_plain(od, 1e-3, tables.scan.coeffs,
+                                          tables.scan.counts)
         torch.cuda.synchronize()
         k1_err = max(k1_err, hit_agree(f"K1 vs plain ({name})", tk, ik, yk,
                                        tp, ip, yp))
@@ -338,6 +400,10 @@ def phase_kernels(results: dict):
                                        od[3:].T.contiguous(), 1e-3)
         hit_agree(f"K1 vs brute oracle ({name})", tk, ik, yk, ob.t,
                   ob.prim_idx, ob.prim_type)
+        feats = intersect.ray_features((od[0], od[1], od[2]),
+                                       (od[3], od[4], od[5])).T
+        equal_on_finite(f"K1 vs dense ({name})", (tk, ik, yk),
+                        k1.closest_hit_dense(od, 1e-3, *dense), feats)
         hits[name] = (tk, ik, yk)
 
     # K2: identical hit inputs; sun-sky main path and the HDR row too.
@@ -388,12 +454,16 @@ def phase_kernels(results: dict):
             f"floats within 1e-5; next_work {int(out[4])} live "
             f"{int(out[6])}")
 
-    # Times at P = 131,072 on the bounce lanes.
+    # Times at P = 131,072 on the bounce lanes: the new scan and the dense
+    # one in turns (new, dense, dense, new).
     od = ray_sets["bounce"]
-    t_k1 = time_ms("K1", lambda: k1.closest_hit(od, 1e-3, tables.coeffs,
-                                                tables.bounds, tables.counts))
+    k1_new = lambda: k1.closest_hit(od, 1e-3, tables.scan)
+    k1_dense = lambda: k1.closest_hit_dense(od, 1e-3, *dense)
+    t_k1, t_k1d = time_ms("K1", k1_new), time_ms("K1 dense", k1_dense)
+    t_k1d = (t_k1d + time_ms("K1 dense", k1_dense)) / 2
+    t_k1 = (t_k1 + time_ms("K1", k1_new)) / 2
     t_k1p = time_ms("K1 plain", lambda: k1.closest_hit_plain(
-        od, 1e-3, tables.coeffs, tables.counts), n=5, rounds=3)
+        od, 1e-3, tables.scan.coeffs, tables.scan.counts), n=5, rounds=3)
     hb = hits["bounce"]
     t_k2 = time_ms("K2", lambda: fs.decode(tables, od, *hb, aparams))
     t_k2p = time_ms("K2 plain", lambda: fs.decode_plain(tables, od, *hb,
@@ -404,22 +474,29 @@ def phase_kernels(results: dict):
         tables, rec1, *state, bparams, sp), rounds=3)
 
     # Bounds from this run's inputs (see PERF.md for the reckoning).
-    k1_flops = k1_operations(od, hb[0], tables)
-    log(f"  K1 operations: {k1_flops / P_MAIN:.0f} per ray on the bounce set")
+    k1_flops = k1_operations(od, hb[0], fine_tables(scene, tables.scan),
+                             width=intersect.MM_FINE)
+    log(f"  K1 operations: {k1_flops / P_MAIN:.0f} per ray on the bounce set "
+        f"(the bound: nonzero coefficients, 128-wide AABBs); structural (what "
+        f"the new scan does): "
+        f"{k1_structural_operations(od, hb[0], tables.scan) / P_MAIN:.0f}; "
+        f"over 512-wide chunks (the dense scan's cull): "
+        f"{k1_operations(od, hb[0], dense) / P_MAIN:.0f}")
     k1_bytes = P_MAIN * (6 * 4 + 3 * 4) + sum(
-        4 * (c.numel() + b.numel()) for c, b in zip(tables.coeffs,
-                                                    tables.bounds))
+        4 * (c.numel() + b.numel()) for c, b in zip(tables.scan.rows,
+                                                    tables.scan.bounds))
     k2_bytes = P_MAIN * (6 * 4 + 3 * 4 + 24 * 4)
     k3_bytes = P_MAIN * (24 * 4 + 16 * 4 + (4 + 2) * 4 + 16 * 4 + 4 * 4)
     bound = lambda by, fl=0: max(by / PEAK_BYTES_PER_S, fl / PEAK_F32_FLOPS) * 1e3
+    k1_bound, k1_by = bound_ms(k1_bytes, k1_flops)
     pkg = "raytracer_project_tpu_torch"
     results.update({
         "closest_hit": dict(
             name="closest_hit", route="cuda", source=f"{pkg}/csrc/closest_hit.cu",
             replaces="raytracer_project_tpu/ops/pallas_intersect.py:272",
             max_abs_err=k1_err, ms=t_k1, plain_ms=t_k1p,
-            bound_ms=bound(k1_bytes, k1_flops), bound_by="operations",
-            library_ms=None),
+            bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
+            dense_ms=t_k1d),
         "decode": dict(
             name="decode", route="cuda", source=f"{pkg}/csrc/decode.cu",
             replaces="raytracer_project_tpu/ops/fused_step.py:326",
@@ -435,6 +512,8 @@ def phase_kernels(results: dict):
     for r in results.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"  closest_hit dense: {t_k1d:.4f} ms/launch "
+        f"({t_k1d / t_k1:.2f}x the new scan)")
     return ray_sets
 
 
@@ -446,21 +525,20 @@ def phase_k4(results: dict) -> None:
 
     from raytracer_project_tpu_torch.core import rng
     from raytracer_project_tpu_torch.models import camera as tcam
-    from raytracer_project_tpu_torch.models import environment as tenv
     from raytracer_project_tpu_torch.models import presets
     from raytracer_project_tpu_torch.ops import closest_hit as k1
-    from raytracer_project_tpu_torch.ops import fused_step as fs
     from raytracer_project_tpu_torch.ops import intersect, shade
+    from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
 
     dev = torch.device("cuda")
     scene = presets.showcase_scene().to(dev)
     cam = tcam.make_camera(image_width=800, image_height=450, **CAM_KW).to(dev)
-    env = tenv.make_environment(**ENV_KW).to(dev)
-    tables = fs.build_tables(scene, env, tenv.PHYSICAL_SUN)
+    tables = intersect.hit_tables(scene)
+    dense = pa.scene_tables(scene)
     pix = torch.arange(P_CHUNKED, device=dev)
     lr = rng.lane_rng(rng.seed_from_int(0), pix, 0).with_ctx(0, 0)
     o, d = tcam.generate_rays(cam, lr, pix, 800)
-    first = intersect.intersect(scene, o, d, 1e-3)
+    first = intersect.intersect(scene, o, d, 1e-3, tables)
     rec = intersect.make_record(scene, o, d, first)
     sc = shade.scatter(scene, rec, d, lr)
     ray_sets = {"camera": (o, d), "bounce": (sc.origin, sc.direction)}
@@ -471,40 +549,51 @@ def phase_k4(results: dict) -> None:
         if name == "bounce":
             left = (first.prim_idx, first.prim_type, first.hit)
         feats = intersect.ray_feature_rows(ro, rd).contiguous()
-        tk, ik, yk = k1.closest_hit_feats(feats, 1e-3, tables.coeffs,
-                                          tables.bounds, tables.counts)
+        tk, ik, yk = k1.closest_hit_feats(feats, 1e-3, tables)
         tp, ip, yp = k1.closest_hit_feats_plain(feats, 1e-3, tables.coeffs,
                                                 tables.counts)
         torch.cuda.synchronize()
         err = max(err, hit_agree(f"K4 vs plain ({name})", tk, ik, yk,
                                  tp, ip, yp, left))
+        equal_on_finite(f"K4 vs dense ({name})", (tk, ik, yk),
+                        k1.closest_hit_feats_dense(feats, 1e-3, *dense), feats)
         od = torch.cat([ro.T, rd.T]).contiguous()
         hit_agree(f"K4 vs K1 ({name})", tk, ik, yk,
-                  *k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
-                                  tables.counts), left)
+                  *k1.closest_hit(od, 1e-3, tables), left)
         ob = intersect.intersect_brute(scene, ro.contiguous(), rd.contiguous(),
                                        1e-3)
         hit_agree(f"K4 vs brute oracle ({name})", tk, ik, yk, ob.t,
                   ob.prim_idx, ob.prim_type, left)
-    # Times and the bound on the bounce set (the last one above).
-    t_k4 = time_ms("K4", lambda: k1.closest_hit_feats(
-        feats, 1e-3, tables.coeffs, tables.bounds, tables.counts))
+    # Times and the bound on the bounce set (the last one above): the new
+    # scan and the dense one in turns.
+    k4_new = lambda: k1.closest_hit_feats(feats, 1e-3, tables)
+    k4_dense = lambda: k1.closest_hit_feats_dense(feats, 1e-3, *dense)
+    t_k4, t_k4d = time_ms("K4", k4_new), time_ms("K4 dense", k4_dense)
+    t_k4d = (t_k4d + time_ms("K4 dense", k4_dense)) / 2
+    t_k4 = (t_k4 + time_ms("K4", k4_new)) / 2
     t_k4p = time_ms("K4 plain", lambda: k1.closest_hit_feats_plain(
         feats, 1e-3, tables.coeffs, tables.counts), n=3, rounds=3)
-    flops = k1_operations(od, tk, tables)
-    log(f"  K4 operations: {flops / P_CHUNKED:.0f} per ray on the bounce set")
+    flops = k1_operations(od, tk, fine_tables(scene, tables),
+                          width=intersect.MM_FINE)
+    log(f"  K4 operations: {flops / P_CHUNKED:.0f} per ray on the bounce set "
+        f"(the bound: nonzero coefficients, 128-wide AABBs); structural (what "
+        f"the new scan does): "
+        f"{k1_structural_operations(od, tk, tables) / P_CHUNKED:.0f}; over "
+        f"512-wide chunks (the dense scan's cull): "
+        f"{k1_operations(od, tk, dense) / P_CHUNKED:.0f}")
     nbytes = P_CHUNKED * (16 * 4 + 3 * 4) + sum(
-        4 * (c.numel() + b.numel()) for c, b in zip(tables.coeffs,
+        4 * (c.numel() + b.numel()) for c, b in zip(tables.rows,
                                                     tables.bounds))
-    bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
+    bound, bound_by = bound_ms(nbytes, flops)
     results["closest_hit_feats"] = dict(
         name="closest_hit_feats", route="cuda",
         source="raytracer_project_tpu_torch/csrc/closest_hit.cu",
         replaces="raytracer_project_tpu/ops/pallas_intersect.py:228",
         max_abs_err=err, ms=t_k4, plain_ms=t_k4p, bound_ms=bound,
-        bound_by="operations", library_ms=None)
+        bound_by=bound_by, library_ms=None, dense_ms=t_k4d)
     log(f"  closest_hit_feats: {t_k4:.4f} ms/launch, plain {t_k4p:.4f} ms, "
-        f"bound {bound:.4f} ms (operations)")
+        f"bound {bound:.4f} ms ({bound_by}); dense {t_k4d:.4f} ms "
+        f"({t_k4d / t_k4:.2f}x)")
 
 
 # --- phases 3 and 4 -----------------------------------------------------------
@@ -538,7 +627,8 @@ def _launches(names) -> dict:
 
 
 class _PlainCallCounter:
-    """Counts calls of the plain versions while the render runs."""
+    """Counts calls of the plain versions, and of the dense closest-hit
+    scan, while the render runs."""
 
     def __enter__(self):
         from raytracer_project_tpu_torch.ops import closest_hit as k1
@@ -547,7 +637,8 @@ class _PlainCallCounter:
         self.calls = 0
         self.saved = [(k1, "closest_hit_plain"), (fs, "decode_plain"),
                       (fs, "shade_advance_plain"),
-                      (k1, "closest_hit_feats_plain")]
+                      (k1, "closest_hit_feats_plain"),
+                      (k1, "closest_hit_dense"), (k1, "closest_hit_feats_dense")]
         self.orig = [getattr(m, a) for m, a in self.saved]
         for (m, a), f in zip(self.saved, self.orig):
             setattr(m, a, self._wrap(f))
@@ -562,6 +653,34 @@ class _PlainCallCounter:
     def __exit__(self, *exc):
         for (m, a), f in zip(self.saved, self.orig):
             setattr(m, a, f)
+
+
+class _NonFiniteLanes:
+    """Counts, while the chunked render runs, the lanes K4 is handed whose
+    features 0-12 are not finite (the only lanes where the compact-row scan
+    and the dense one may differ: dead lanes of `trace` go through K4)."""
+
+    def __enter__(self):
+        import torch
+
+        from raytracer_project_tpu_torch.ops import intersect
+
+        self.lanes = self.total = 0
+        self.orig = intersect.ray_feature_rows
+
+        def counted(o, d):
+            f = self.orig(o, d)
+            self.lanes += int((~torch.isfinite(f[:13]).all(0)).sum())
+            self.total += f.shape[1]
+            return f
+
+        intersect.ray_feature_rows = counted
+        return self
+
+    def __exit__(self, *exc):
+        from raytracer_project_tpu_torch.ops import intersect
+
+        intersect.ray_feature_rows = self.orig
 
 
 def _showcase(width, height, **scene_kw):
@@ -726,13 +845,14 @@ def phase_chunked_smoke() -> None:
     cam = tcam.make_camera(image_width=64, image_height=36, **CAM_KW)
     env = tenv.make_environment(**ENV_KW)
     _reset_counters()
-    with _PlainCallCounter() as plain:
+    with _PlainCallCounter() as plain, _NonFiniteLanes() as odd:
         cfg = _chunked_cfg(64, 36, 8, max_depth=6, aovs=False)
         out = integrator.render(scene, cam, env, 0, cfg)
         img = out["beauty"].cpu().numpy()
     launches = _launches(CHUNKED_KERNELS)
     log(f"chunked smoke: 64x36@8spp depth 6 launches {launches}, plain calls "
-        f"{plain.calls}")
+        f"{plain.calls}; K4 lanes with non-finite features {odd.lanes} of "
+        f"{odd.total}")
     check(all(v > 0 for v in launches.values()), "K4 was not launched")
     check(plain.calls == 0, "a plain version ran during the CUDA render")
     golden = np.load(os.path.join(REPO, "tests", "goldens",
@@ -743,14 +863,15 @@ def phase_chunked_smoke() -> None:
     scene = presets.showcase_scene()
     cam = tcam.make_camera(image_width=32, image_height=18, **CAM_KW)
     cfg = _chunked_cfg(32, 18, 4)
-    with _PlainCallCounter() as plain:
+    with _PlainCallCounter() as plain, _NonFiniteLanes() as odd:
         card = integrator.render(scene.to(dev), cam, env, 4, cfg)
         card = {k: v.cpu().numpy() for k, v in card.items()}
     check(plain.calls == 0, "a plain version ran during the CUDA render")
     t0 = time.perf_counter()
     cpu = integrator.render(scene, cam, env, 4, cfg, device="cpu")
     log(f"chunked smoke: 32x18@4spp, six buffers; CPU render "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; K4 lanes with non-finite "
+        f"features {odd.lanes} of {odd.total}")
     for name, ref in cpu.items():
         _image_agree(f"32x18@4spp {name} card vs CPU", card[name], ref.numpy())
 
@@ -986,15 +1107,12 @@ def _probe_p1(results: dict) -> None:
     grouped per warp, timed, with its operation bound; full against K1."""
     import torch
 
-    from raytracer_project_tpu_torch.models import environment as tenv
     from raytracer_project_tpu_torch.ops import closest_hit as k1
-    from raytracer_project_tpu_torch.ops import fused_step as fs
     from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
 
     dev = torch.device("cuda")
-    scene, _, env = _showcase(8, 8)
-    tables = fs.build_tables(scene, env, tenv.PHYSICAL_SUN)
-    tab = (tables.coeffs, tables.bounds, tables.counts)
+    scene = _showcase(8, 8)[0]
+    tab = pa.scene_tables(scene)
     od = pa.make_rays(pa.P, 0, dev)
     # The SASS of each variant: the work the probe takes away is gone, and
     # only that work (FFMA: the dots; MUFU: the epilogues' sqrt/rcp).
@@ -1011,7 +1129,7 @@ def _probe_p1(results: dict) -> None:
     check(ops["nodots"].get("MUFU", 0) >= ops["full"].get("MUFU", 0),
           "nodots lost its epilogues")
     nbytes = pa.P * (6 * 4 + 3 * 4) + sum(
-        4 * (c.numel() + b.numel()) for c, b in zip(tables.coeffs, tables.bounds))
+        4 * (c.numel() + b.numel()) for c, b in zip(*tab[:2]))
     for v in pa.VARIANTS:
         _reset_counters()
         entry = pa.run(v, od, *tab)
@@ -1025,7 +1143,7 @@ def _probe_p1(results: dict) -> None:
         check(stats["ok"], f"P1 {v} disagrees with its plain version")
         if v == "full":
             t_full = t
-            tk = k1.closest_hit(od, 0.0, *tab)[0]
+            tk = k1.closest_hit(od, 0.0, k1.scan_tables(scene))[0]
             lanes = torch.nonzero(t != tk).flatten()
             for i in lanes[:8].tolist():
                 log(f"    lane {i}: P1 full t {float(t[i]):.9g} K1 t "
@@ -1035,7 +1153,7 @@ def _probe_p1(results: dict) -> None:
         ms = time_ms(f"P1 {v}", lambda: pa.ablate(od, 0.0, *tab, v))
         plain_ms = time_ms(f"P1 {v} plain", lambda: pa.ablate_plain(
             od, 0.0, *tab, v, pa.WARP), n=3, rounds=3)
-        flops = p1_operations(od, t_full, tables, v)
+        flops = p1_operations(od, t_full, tab, v)
         bound, by = bound_ms(nbytes, flops)
         log(f"  P1.{v}: {ms:.4f} ms/launch (entry {entry['ms']:.4f}), plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
@@ -1173,24 +1291,21 @@ def _probe_decode(results: dict) -> None:
 
 
 def _k1_split(od) -> None:
-    """K1's time split by P1's variants on the main path's own rays (the
-    pool's bounce set, tmin T_MIN): full - cheapepi ~ the epilogues, full -
-    nodots ~ the dots, nocull - full what the cull saves; with each
-    variant's operations per ray. Logged only."""
-    import torch
-
+    """The dense scan's time split by P1's variants on the main path's own
+    rays (the pool's bounce set, tmin T_MIN): full - cheapepi ~ the
+    epilogues, full - nodots ~ the dots, nocull - full what the cull saves;
+    with each variant's operations per ray, beside K1 (the compact-row
+    scan, which P1 full and nocull equal on every lane). Logged only."""
     from raytracer_project_tpu_torch.core.constants import T_MIN
-    from raytracer_project_tpu_torch.models import environment as tenv
     from raytracer_project_tpu_torch.ops import closest_hit as k1
-    from raytracer_project_tpu_torch.ops import fused_step as fs
     from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
 
-    scene, _, env = _showcase(8, 8)
-    tables = fs.build_tables(scene, env, tenv.PHYSICAL_SUN)
-    tab = (tables.coeffs, tables.bounds, tables.counts)
-    t_k1 = k1.closest_hit(od, T_MIN, *tab)[0]
+    scene = _showcase(8, 8)[0]
+    tab = pa.scene_tables(scene)
+    scan = k1.scan_tables(scene)
+    t_k1 = k1.closest_hit(od, T_MIN, scan)[0]
     ms = {"K1": time_ms("K1 (bounce set)", lambda: k1.closest_hit(
-        od, T_MIN, *tab))}
+        od, T_MIN, scan))}
     for v in pa.VARIANTS:
         t = pa.ablate(od, T_MIN, *tab, v)[0]
         if v in ("full", "nocull"):
@@ -1199,12 +1314,13 @@ def _k1_split(od) -> None:
             check(n_diff == 0, f"P1 {v} differs from K1 on the bounce set")
         ms[v] = time_ms(f"P1 {v} (bounce set)", lambda: pa.ablate(
             od, T_MIN, *tab, v))
-        flops = p1_operations(od, t_k1, tables, v)
+        flops = p1_operations(od, t_k1, tab, v)
         log(f"  P1 {v} on the bounce set: {ms[v]:.4f} ms/launch "
             f"({ms[v] / ms['K1']:.3f} of K1), {flops / od.shape[1]:.0f} "
             f"operations per ray")
     f = ms["full"]
-    log(f"  K1 split ({od.shape[1]} bounce lanes): full {f:.4f} ms; "
+    log(f"  dense scan split ({od.shape[1]} bounce lanes; K1 {ms['K1']:.4f} "
+        f"ms): full {f:.4f} ms; "
         f"full - cheapepi {f - ms['cheapepi']:.4f} ms "
         f"({(f - ms['cheapepi']) / f:.3f}, ~epilogues); full - nodots "
         f"{f - ms['nodots']:.4f} ms ({(f - ms['nodots']) / f:.3f}, ~dots); "
@@ -1243,7 +1359,7 @@ def main() -> int:
     for name in kernels.SOURCES:
         text = (kernels.BUILD_DIR / f"{name}.log").read_text()
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  {name}: {line.strip()}")
     results: dict = {}
     ray_sets = phase_kernels(results)

@@ -36,10 +36,14 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C entry point -> (source, argument types, the stream last); every entry
 # returns the launch's cudaGetLastError() as int.
 SIGNATURES = {
-    "closest_hit_od": ("closest_hit", [_P, _I, _F] + [_P, _I, _P, _I] * 3
+    "closest_hit_od": ("closest_hit", [_P, _I, _F] + [_P, _P, _I] * 3
                        + [_P, _P, _P, _P]),
-    "closest_hit_feats": ("closest_hit", [_P, _I, _F] + [_P, _I, _P, _I] * 3
+    "closest_hit_feats": ("closest_hit", [_P, _I, _F] + [_P, _P, _I] * 3
                           + [_P, _P, _P, _P]),
+    "closest_hit_od_dense": ("closest_hit", [_P, _I, _F] + [_P, _I, _P, _I] * 3
+                             + [_P, _P, _P, _P]),
+    "closest_hit_feats_dense": ("closest_hit", [_P, _I, _F]
+                                + [_P, _I, _P, _I] * 3 + [_P, _P, _P, _P]),
     "decode_launch": ("decode", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                                  _I, _I, _I, _I, _F, _F, _I, _F, _F, _P, _P]),
     "shade_advance_launch": ("shade_advance",

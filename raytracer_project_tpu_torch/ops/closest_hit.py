@@ -9,14 +9,25 @@
 
 For every ray (o, d) the 16 ray features [d, o, o x d, o.d, |o|^2, 1,
 |d|^2, 0, 0, 0] are formed, and the sphere, triangle and box coefficient
-tables ([16, G, C_pad], ops/intersect.py) are scanned in index order in
-512-primitive chunks: a feature x coefficient dot per primitive output,
-then the quadratic, Moller-Trumbore or slab epilogue. Strict `<` against
-the running best keeps the first minimal index of a chunk and the earlier
-chunk or table on ties; rows past each table's count are never scanned.
-Returns (t, prim_idx, prim_type), t = T_MAX on a miss.
+tables ([16, G, C_pad], ops/intersect.py) are scanned in index order: a
+feature x coefficient dot per primitive output, then the quadratic,
+Moller-Trumbore or slab epilogue. Strict `<` against the running best
+keeps the first minimal index and the earlier table on ties; rows past
+each table's count are never scanned. Returns (t, prim_idx, prim_type),
+t = T_MAX on a miss.
 
-Two implementations of each:
+The tables' structural nonzeros. build_mm_tables fills fixed feature slots
+per output (`SLOTS`): 9 of a sphere's 32 coefficients, 19 of a
+triangle's 64, 21 of a box's 96. `scan_tables` gathers them once per scene
+into prim-major compact rows (`ROW_WIDTHS` floats, padded to 16 bytes) and
+raises if any other coefficient of a scanned column is not exactly 0. In
+an fmaf chain that starts at +0, a term with a zero coefficient returns
+the sum unchanged for every finite feature (acc + (+-0) is acc for a
+nonzero acc, +0 + (+-0) is +0 under round-to-nearest, and the chain never
+reaches -0), so the chain over the listed slots in ascending order gives
+the dense 16-term chain's result bit for bit.
+
+Three implementations of each kernel:
   * `closest_hit_plain` / `closest_hit_feats_plain` (CPU tensors, and the
     on-card reference): repeat the reference's SPLITK arithmetic -- bf16
     digit split, digits upcast to f32, the hh pass and the five-pair pass
@@ -25,25 +36,45 @@ Two implementations of each:
     feature step; 512-wide chunks with the first minimal index of a chunk
     give the hits of the reference's 128-wide argmin scan
     (intersect_brute_mm), ties included.
-  * csrc/closest_hit.cu (CUDA tensors), entries closest_hit_od (K1) and
-    closest_hit_feats (K4, which loads the 16 features of a lane from the
-    [16, N] rows, consecutive threads on consecutive lanes): one thread per
-    ray, features in registers, f32 FMAs for the 16-term dots (no
-    TF32/bf16 tensor cores: low precision corrupts the hit set). Each warp
-    culls a chunk whose AABB none of its rays can reach before its current
-    best t, so culling never changes a result.
+  * csrc/closest_hit.cu's entries closest_hit_od (K1) and closest_hit_feats
+    (K4, which loads features 0-12 of a lane from the [16, N] rows): what
+    `closest_hit` / `closest_hit_feats` launch on CUDA tensors. Each
+    thread holds one ray; each block stages SCAN_TILE-row tiles of the
+    compact rows in shared memory (a two-stage ring of asynchronous
+    copies), skips a tile that none of its rays reaches, and each warp
+    skips a staged tile that none of its rays reaches before its best t.
+    The dots are fmaf chains over the structural slots: equal, bit for
+    bit, to the dense entries' on every lane with finite features.
+  * csrc/closest_hit.cu's closest_hit_od_dense / closest_hit_feats_dense
+    (`closest_hit_dense`, `closest_hit_feats_dense`): the 16-term scan of
+    the first port, one ray per thread, kept as the yardstick the new
+    entries are held to and timed against; no render path calls them.
+
+Non-finite features. On a lane whose features 0-12 are not all finite
+(an infinite or NaN origin or direction), the dense chain multiplies the
+bad feature by every zero coefficient too and turns NaN, so the dense
+scan and the reference's kernel miss every primitive; the compact chain
+skips those products, so K1 and K4 may report a hit there, on a
+primitive whose listed slots keep its dots finite. Such a lane's answer is
+not specified. chip_smoke.py counts such lanes on the card, on its K1 and
+K4 ray sets and in its chunked smoke renders (PERF.md has the counts), and
+`integrator.trace` masks every hit of a retired lane with its `active`
+mask, so whatever a retired lane gets reaches no buffer
+(tests/test_torch_compact.py).
 
 Bound on the H100 (SXM, 700 W): f32 operations at 67 TFLOP/s, against
 36 B per ray of traffic (K4: 76 B, the 16 features in). What the rays
-need: for each 512-primitive chunk whose AABB a ray reaches before its
-closest hit, 2 per nonzero coefficient of the chunk's real primitives (one
-FMA each; the showcase tables hold 4,085 sphere, 10,234 triangle and 5,806
-box nonzeros, so about 40k FLOP per ray unculled) and one epilogue per
-primitive (15, 12 and 35 operations). chip_smoke.py `k1_operations` counts
-it on the run's rays.
+need: for each MM_FINE = 128-primitive tile (the tables' finest AABBs)
+that a ray reaches before its closest hit, 2 per nonzero coefficient of
+the tile's real primitives (one FMA each; the showcase tables hold 4,085
+sphere, 10,234 triangle and 5,806 box nonzeros, so about 40k FLOP per ray
+unculled) and one epilogue per primitive (15, 12 and 35 operations).
+chip_smoke.py `k1_operations` counts it on the run's rays.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -53,13 +84,71 @@ from .. import kernels
 from . import intersect
 
 CHUNK_PRIMS = 512
+# Feature slots k of each output's structural nonzeros, ascending, per
+# primitive type (ops/intersect.py build_mm_tables); csrc/
+# closest_hit_sparse.cuh holds the same lists.
+SLOTS = (
+    ((0, 1, 2, 9), (3, 4, 5, 10, 11)),                   # sphere h, c
+    ((0, 1, 2), (0, 1, 2, 6, 7, 8), (0, 1, 2, 6, 7, 8),  # det, u_num, v_num,
+     (3, 4, 5, 11)),                                     # t_num
+    ((0, 1, 2),) * 3 + ((3, 4, 5, 11),) * 3,             # box dl xyz, ol xyz
+)
+# Floats per compact row: the slots of all outputs, padded to 16 bytes.
+ROW_WIDTHS = (12, 20, 24)
+# The compact-row scan's tile: rows staged at a time, and the width of the
+# tile AABBs it culls with (the tables' own fine AABBs). csrc/
+# closest_hit_sparse.cuh's SCAN_TILE is the same number.
+SCAN_TILE = 128
 
 
-def coarsen_bounds(fine: torch.Tensor) -> torch.Tensor:
-    """Union MM_FINE-wide chunk AABBs [Cf, 6] into CHUNK_PRIMS-wide ones."""
-    g = CHUNK_PRIMS // intersect.MM_FINE
+class ScanTables(NamedTuple):
+    """One scene's closest-hit tables, built once per scene (`scan_tables`)."""
+
+    coeffs: tuple   # (sphere, tri, box) f32[16, G, C_pad]: the plain versions'
+    rows: tuple     # (sphere, tri, box) f32[count, ROW_WIDTHS]: the kernels'
+    bounds: tuple   # (sphere, tri, box) f32[C_pad / SCAN_TILE, 6] tile AABBs
+    counts: tuple   # (n_spheres, n_tris, n_boxes) ints
+
+
+def coarsen_bounds(fine: torch.Tensor, width: int = CHUNK_PRIMS) -> torch.Tensor:
+    """Union MM_FINE-wide chunk AABBs [Cf, 6] into `width`-wide ones."""
+    g = width // intersect.MM_FINE
     r = fine.reshape(-1, g, 6)
     return torch.cat([r[:, :, :3].amin(1), r[:, :, 3:].amax(1)], dim=1)
+
+
+def compact_rows(coeff: torch.Tensor, count: int, slots, width: int):
+    """The structural nonzeros of the first `count` columns of a [16, G,
+    C_pad] table as prim-major rows f32[count, width]: output by output,
+    each output's slots in ascending k, zeros after. Raises ValueError if
+    any coefficient outside `slots` in those columns is not exactly 0."""
+    cols = coeff[:, :, :count]
+    listed = torch.zeros(cols.shape[:2], dtype=torch.bool)
+    for g, ks in enumerate(slots):
+        listed[list(ks), g] = True
+    listed = listed.to(cols.device)
+    stray = (cols[~listed] != 0).any(dim=1)
+    if bool(stray.any()):
+        k, g = torch.nonzero(~listed)[torch.nonzero(stray)[0, 0]].tolist()
+        raise ValueError(f"coefficient table [16, {cols.shape[1]}, :]: slot "
+                         f"k={k} of output {g} is not a structural zero")
+    rows = torch.cat([cols[list(ks), g] for g, ks in enumerate(slots)]).T
+    return torch.nn.functional.pad(rows, (0, width - rows.shape[1])).contiguous()
+
+
+def scan_tables(scene) -> ScanTables:
+    """The closest-hit tables of a scene with coefficient tables (scene.mm):
+    the dense tables, their compact rows and the SCAN_TILE-wide tile AABBs,
+    on the scene's device. Build once per scene, not per launch."""
+    mm = scene.mm
+    coeffs = (mm.sphere_coeff, mm.tri_coeff, mm.box_coeff)
+    counts = (scene.spheres.count, scene.triangles.count,
+              scene.boxes.count if scene.boxes is not None else 0)
+    rows = tuple(compact_rows(c, n, s, w)
+                 for c, n, s, w in zip(coeffs, counts, SLOTS, ROW_WIDTHS))
+    bounds = tuple(coarsen_bounds(b, SCAN_TILE).contiguous()
+                   for b in (mm.sphere_bounds, mm.tri_bounds, mm.box_bounds))
+    return ScanTables(coeffs=coeffs, rows=rows, bounds=bounds, counts=counts)
 
 
 def closest_hit_plain(od, tmin: float, coeffs, counts):
@@ -106,28 +195,42 @@ def closest_hit_feats_plain(feats, tmin: float, coeffs, counts):
     return best_t, best_idx, best_type
 
 
-def _launch(entry, rays, n, tmin, coeffs, bounds, counts):
-    kernels.require_cuda(rays, *coeffs, *bounds, dtype=torch.float32)
-    t = torch.empty((n,), dtype=torch.float32, device=rays.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=rays.device)
-    typ = torch.empty((n,), dtype=torch.int32, device=rays.device)
+def _outputs(rays, n):
+    return (torch.empty((n,), dtype=torch.float32, device=rays.device),
+            torch.empty((n,), dtype=torch.int32, device=rays.device),
+            torch.empty((n,), dtype=torch.int32, device=rays.device))
+
+
+def _launch(entry, rays, n, tmin, tables: ScanTables):
+    """One launch of the compact-row scan `entry`."""
+    kernels.require_cuda(rays, *tables.rows, *tables.bounds,
+                         dtype=torch.float32)
+    for rows, n_rows, w, bnd in zip(tables.rows, tables.counts, ROW_WIDTHS,
+                                    tables.bounds):
+        if rows.shape != (n_rows, w) or rows.data_ptr() % 16:
+            raise ValueError(f"compact rows {tuple(rows.shape)}, expected "
+                             f"({n_rows}, {w}) on a 16-byte boundary")
+        if bnd.shape[0] * SCAN_TILE < n_rows:
+            raise ValueError(f"{bnd.shape[0]} tile bounds of width "
+                             f"{SCAN_TILE} for {n_rows} rows")
+    out = _outputs(rays, n)
     args = [rays, n, tmin]
-    for coeff, bnd, c in zip(coeffs, bounds, counts):
-        args += [coeff, coeff.shape[2], bnd, c]
-    kernels.launch(entry, *args, t, idx, typ)
-    return t, idx, typ
+    for rows, bnd, c in zip(tables.rows, tables.bounds, tables.counts):
+        args += [rows, bnd, c]
+    kernels.launch(entry, *args, *out)
+    return out
 
 
-def closest_hit(od, tmin: float, coeffs, bounds, counts):
-    """Closest hit of the rays od f32[6, P] against the coefficient tables.
+def closest_hit(od, tmin: float, tables: ScanTables):
+    """Closest hit of the rays od f32[6, P] against a scene's ScanTables.
 
     On CPU tensors this is `closest_hit_plain`; on CUDA tensors it launches
-    csrc/closest_hit.cu (bounds: the CHUNK_PRIMS-wide chunk AABBs, used for
-    culling only). Returns (t f32[P], idx i32[P], type i32[P])."""
+    csrc/closest_hit.cu's closest_hit_od on the compact rows (the tile
+    bounds are used for culling only). Returns (t f32[P], idx i32[P],
+    type i32[P])."""
     if od.device.type == "cpu":
-        return closest_hit_plain(od, tmin, coeffs, counts)
-    out = _launch("closest_hit_od", od, od.shape[1], tmin, coeffs, bounds,
-                  counts)
+        return closest_hit_plain(od, tmin, tables.coeffs, tables.counts)
+    out = _launch("closest_hit_od", od, od.shape[1], tmin, tables)
     closest_hit.launches += 1
     return out
 
@@ -135,18 +238,43 @@ def closest_hit(od, tmin: float, coeffs, bounds, counts):
 closest_hit.launches = 0
 
 
-def closest_hit_feats(feats, tmin: float, coeffs, bounds, counts):
+def closest_hit_feats(feats, tmin: float, tables: ScanTables):
     """K4: the closest hit of rays given by their prebuilt features
     f32[16, N] (intersect.ray_feature_rows), against the same tables as
     `closest_hit`. On CPU tensors this is `closest_hit_feats_plain`; on
     CUDA tensors it launches csrc/closest_hit.cu's closest_hit_feats.
     Returns (t f32[N], idx i32[N], type i32[N])."""
     if feats.device.type == "cpu":
-        return closest_hit_feats_plain(feats, tmin, coeffs, counts)
-    out = _launch("closest_hit_feats", feats, feats.shape[1], tmin, coeffs,
-                  bounds, counts)
+        return closest_hit_feats_plain(feats, tmin, tables.coeffs,
+                                       tables.counts)
+    out = _launch("closest_hit_feats", feats, feats.shape[1], tmin, tables)
     closest_hit_feats.launches += 1
     return out
 
 
 closest_hit_feats.launches = 0
+
+
+def _launch_dense(entry, rays, n, tmin, coeffs, bounds, counts):
+    kernels.require_cuda(rays, *coeffs, *bounds, dtype=torch.float32)
+    out = _outputs(rays, n)
+    args = [rays, n, tmin]
+    for coeff, bnd, c in zip(coeffs, bounds, counts):
+        args += [coeff, coeff.shape[2], bnd, c]
+    kernels.launch(entry, *args, *out)
+    return out
+
+
+def closest_hit_dense(od, tmin: float, coeffs, bounds, counts):
+    """The dense 16-term scan of K1 (CUDA tensors only): coeffs [16, G,
+    C_pad], bounds the CHUNK_PRIMS-wide chunk AABBs. The yardstick that
+    `closest_hit` is held to; no render path calls it."""
+    return _launch_dense("closest_hit_od_dense", od, od.shape[1], tmin,
+                         coeffs, bounds, counts)
+
+
+def closest_hit_feats_dense(feats, tmin: float, coeffs, bounds, counts):
+    """The dense 16-term scan of K4 (CUDA tensors only), as
+    `closest_hit_dense`."""
+    return _launch_dense("closest_hit_feats_dense", feats, feats.shape[1],
+                         tmin, coeffs, bounds, counts)

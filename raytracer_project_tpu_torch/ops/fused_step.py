@@ -116,9 +116,8 @@ _TOTAL_WORK_CAP = 1 << 24
 class FusedTables(NamedTuple):
     """Scene constants read by the kernels: plain f32 row-major tables."""
 
-    coeffs: tuple        # (sphere, tri, box) f32[16, G, C_pad]
-    bounds: tuple        # (sphere, tri, box) f32[C_pad/512, 6]
-    counts: tuple        # (n_spheres, n_tris, n_boxes) ints
+    scan: k1.ScanTables  # K1's tables (dense, compact rows, tile AABBs,
+                         # counts)
     rectab: torch.Tensor     # f32[Ntot, 28] packed primitive shading rows
     mattab: torch.Tensor     # f32[M, 8] albedo rgb, param, mtype, tex, bump, bstr
     texmeta: torch.Tensor    # f32[K, 10] kind, w, h, inv_scale, even rgb, odd rgb
@@ -151,8 +150,7 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
     if env_mode == env_mod.HDR_MAP:
         env_hw = (int(env.hdr_image.shape[0]), int(env.hdr_image.shape[1]))
         env_rows = pad1(env.hdr_image.reshape(-1, 3))
-    mm = scene.mm
-    n_boxes = scene.boxes.count if scene.boxes is not None else 0
+    scan = k1.scan_tables(scene)
     vparams = torch.zeros((1, _VP_COLS), dtype=torch.float32,
                           device=mattab.device)
     vol = scene.volumes
@@ -169,10 +167,7 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
             torch.zeros((vol.count, 1), dtype=torch.float32,
                         device=mattab.device)], dim=1)
     return FusedTables(
-        coeffs=(mm.sphere_coeff, mm.tri_coeff, mm.box_coeff),
-        bounds=tuple(k1.coarsen_bounds(b).contiguous() for b in
-                     (mm.sphere_bounds, mm.tri_bounds, mm.box_bounds)),
-        counts=(scene.spheres.count, scene.triangles.count, n_boxes),
+        scan=scan,
         rectab=_packed_all(scene).contiguous(),
         mattab=mattab.contiguous(),
         texmeta=texmeta.contiguous(),
@@ -237,7 +232,7 @@ def decode_records_plain(tables: FusedTables, od, t, idx, typ):
     o = (od[0], od[1], od[2])
     d = (od[3], od[4], od[5])
     t_safe = torch.where(t < T_MAX, t, 1.0)
-    n_s, n_t, _ = tables.counts
+    n_s, n_t, _ = tables.scan.counts
     is_tri = typ == PRIM_TRIANGLE
     is_box = typ == PRIM_BOX
     is_sph = typ == PRIM_SPHERE
@@ -260,7 +255,7 @@ def decode_records_plain(tables: FusedTables, od, t, idx, typ):
         return torch.where(mask, b, a)
 
     parts = tuple(sel(is_tri, sp[i], tp[i]) for i in range(8))
-    if tables.counts[2]:
+    if tables.scan.counts[2]:
         bp = _box_record_soa(sel_cols(is_box, _BOX_DEFAULT_ROW, 13), o, d,
                              t_safe)
         parts = tuple(sel(is_box, parts[i], bp[i]) for i in range(8))
@@ -368,7 +363,8 @@ def decode(tables: FusedTables, od, t, idx, typ, aparams):
         "decode_launch", od, t, idx, typ, p, aparams,
         tables.rectab, tables.rectab.shape[0], tables.mattab,
         tables.mattab.shape[0], tables.texmeta, tables.texmeta.shape[0],
-        tables.counts[0], tables.counts[1], 1 if tables.counts[2] else 0,
+        tables.scan.counts[0], tables.scan.counts[1],
+        1 if tables.scan.counts[2] else 0,
         float(tables.atlas_hw[0]), float(tables.atlas_hw[1]),
         1 if tables.env_hw is not None else 0, float(eh), float(ew), out)
     decode.launches += 1
@@ -380,8 +376,7 @@ decode.launches = 0
 
 def trace_decode(tables: FusedTables, od, aparams):
     """K1 then K2 on the pool's rays: the [24, P] hit-record rows."""
-    t, idx, typ = k1.closest_hit(od, T_MIN, tables.coeffs, tables.bounds,
-                                 tables.counts)
+    t, idx, typ = k1.closest_hit(od, T_MIN, tables.scan)
     return decode(tables, od, t, idx, typ, aparams)
 
 

@@ -88,15 +88,15 @@ def _check_supported(config: RenderConfig) -> None:
 
 
 def trace(scene, env, origin, direction, lane_rng: rng.LaneRng, *,
-          max_bounces: int, env_mode: int, throughput=None, radiance=None,
-          active=None, spec: int = 0, stats=None):
+          tables, max_bounces: int, env_mode: int, throughput=None,
+          radiance=None, active=None, spec: int = 0, stats=None):
     """Bounce loop (camera.hpp:928-986) over a wavefront: radiance f32[N, 3].
 
     Bounce b draws from context (b + 1, spec): the camera segment is
     bounce 0. Every lane is intersected on every bounce, dead ones
     included; the loop ends after max_bounces or once no lane is live (one
     host read per bounce). stats["segments"], when given, adds the live
-    lanes of each bounce."""
+    lanes of each bounce. tables: the scene's intersect.hit_tables."""
     n = origin.shape[0]
     dev = origin.device
     if throughput is None:
@@ -112,7 +112,7 @@ def trace(scene, env, origin, direction, lane_rng: rng.LaneRng, *,
         if stats is not None:
             stats["segments"] += live
         lr = lane_rng.with_ctx(bounce + 1, spec)
-        hit = intersect.intersect(scene, origin, direction, T_MIN)
+        hit = intersect.intersect(scene, origin, direction, T_MIN, tables)
         rec = intersect.make_record(scene, origin, direction, hit)
         # A fog scatter may come before the surface hit
         # (constant_medium.hpp:39-77).
@@ -148,12 +148,13 @@ def trace(scene, env, origin, direction, lane_rng: rng.LaneRng, *,
     return radiance
 
 
-def render_sample(scene, cam, env, seed: int, config: RenderConfig, pixel_ids,
-                  sample_ids, stats=None) -> SampleBuffers:
+def render_sample(scene, tables, cam, env, seed: int, config: RenderConfig,
+                  pixel_ids, sample_ids, stats=None) -> SampleBuffers:
     """One wavefront of (pixel, sample) lanes: every buffer's contribution
     f32[n, 3] per lane (camera.hpp:454-527). pixel_ids, sample_ids: i64[n]
     row-major pixel and absolute sample indices; seed is the u32 seed.
-    Draws depend only on (seed, pixel, sample, bounce, stream)."""
+    Draws depend only on (seed, pixel, sample, bounce, stream). tables: the
+    scene's intersect.hit_tables, built once per render by the caller."""
     n = pixel_ids.shape[0]
     dev = pixel_ids.device
     zeros = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -163,13 +164,13 @@ def render_sample(scene, cam, env, seed: int, config: RenderConfig, pixel_ids,
     o, d = camera_mod.generate_rays(cam, lr0, pixel_ids, config.width)
     if stats is not None:
         stats["segments"] += n
-    first = intersect.intersect(scene, o, d, T_MIN)
+    first = intersect.intersect(scene, o, d, T_MIN, tables)
     rec = intersect.make_record(scene, o, d, first)
     rec = volumes.apply_to_record(scene.volumes, o, d, first, rec, lr0)
     hit_mask = rec.hit
     bg = env_mod.background_color(env, d, config.env_mode)
     trace_kw = dict(max_bounces=config.max_depth - 1, env_mode=config.env_mode,
-                    stats=stats)
+                    stats=stats, tables=tables)
 
     # Beauty: the first hit is shared (camera.hpp:989-1004).
     sc = shade.scatter(scene, rec, d, lr0)
@@ -242,11 +243,12 @@ def _accumulate_chunked(scene, cam, env, seed: int, config: RenderConfig,
     u32_seed = rng.seed_from_int(seed)
     acc = [torch.zeros((n, 3), dtype=torch.float32, device=dev)
            for _ in SampleBuffers._fields]
+    tables = intersect.hit_tables(scene)
     for c0 in range(0, spp, batch):
         lane_samp = sample_offset + c0 + lane_rel
         valid = lane_samp < sample_offset + spp      # tail-chunk mask
-        buf = render_sample(scene, cam, env, u32_seed, config, lane_pix,
-                            lane_samp, stats)
+        buf = render_sample(scene, tables, cam, env, u32_seed, config,
+                            lane_pix, lane_samp, stats)
         is_aux = lane_samp < aux                     # camera.hpp:433, 464
         masks = (valid, valid & is_aux, valid & is_aux, valid & is_aux,
                  valid, valid)

@@ -692,8 +692,20 @@ def intersect_dispatch(scene, tmin) -> str:
     return "brute"
 
 
-def intersect(scene, o, d, tmin: float) -> Hit:
-    """Closest hits of the rays o, d f32[N, 3] beyond tmin."""
+def hit_tables(scene):
+    """What `intersect` needs besides the scene, built once per scene: the
+    closest-hit tables (ops/closest_hit.py ScanTables) on the "k4" route,
+    else None."""
+    if intersect_dispatch(scene, 0.0) != "k4":
+        return None
+    from . import closest_hit
+
+    return closest_hit.scan_tables(scene)
+
+
+def intersect(scene, o, d, tmin: float, tables) -> Hit:
+    """Closest hits of the rays o, d f32[N, 3] beyond tmin. tables: the
+    scene's `hit_tables`, built once per scene by the caller."""
     path = intersect_dispatch(scene, tmin)
     if path == "bvh":
         raise NotImplementedError(
@@ -702,12 +714,6 @@ def intersect(scene, o, d, tmin: float) -> Hit:
         return intersect_brute(scene, o, d, tmin)
     from . import closest_hit
 
-    mm = scene.mm
-    n_boxes = scene.boxes.count if scene.boxes is not None else 0
     t, idx, typ = closest_hit.closest_hit_feats(
-        ray_feature_rows(o, d).contiguous(), tmin,
-        (mm.sphere_coeff, mm.tri_coeff, mm.box_coeff),
-        tuple(closest_hit.coarsen_bounds(b).contiguous()
-              for b in (mm.sphere_bounds, mm.tri_bounds, mm.box_bounds)),
-        (scene.spheres.count, scene.triangles.count, n_boxes))
+        ray_feature_rows(o, d).contiguous(), tmin, tables)
     return Hit(t=t, prim_type=typ, prim_idx=idx, hit=t < T_MAX)

@@ -61,7 +61,7 @@ def camera_hits(p: int, device="cuda"):
         rng.seed_from_int(0), rng.u32(li), rng.u32(samp), 0), li,
         CAM_KW["image_width"])
     od = torch.stack([*o, *d]).contiguous()
-    hit = k1.closest_hit(od, T_MIN, tables.coeffs, tables.bounds, tables.counts)
+    hit = k1.closest_hit(od, T_MIN, tables.scan)
     return tables, od, hit, fs._aparams(env, dev)
 
 
@@ -103,7 +103,8 @@ def decode_stage(stage: int, tables, od, t, idx, typ):
         "probe_decode_stage", stage, od, t, idx, typ, p,
         tables.rectab, tables.rectab.shape[0], tables.mattab,
         tables.mattab.shape[0], tables.texmeta, tables.texmeta.shape[0],
-        tables.counts[0], tables.counts[1], 1 if tables.counts[2] else 0, out)
+        tables.scan.counts[0], tables.scan.counts[1],
+        1 if tables.scan.counts[2] else 0, out)
     decode_stage.launches += 1
     return out
 

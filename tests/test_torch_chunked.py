@@ -46,15 +46,6 @@ def scenes():
     return jpresets.showcase_scene(with_bvh=False), tpresets.showcase_scene()
 
 
-def _tables(scene):
-    mm = scene.mm
-    n_boxes = scene.boxes.count if scene.boxes is not None else 0
-    return ((mm.sphere_coeff, mm.tri_coeff, mm.box_coeff),
-            tuple(k4.coarsen_bounds(torch.as_tensor(b))
-                  for b in (mm.sphere_bounds, mm.tri_bounds, mm.box_bounds)),
-            (scene.spheres.count, scene.triangles.count, n_boxes))
-
-
 @pytest.fixture(scope="module")
 def rays(scenes):
     """4,096 showcase rays: 64x32 camera rays (seed 3) and one scatter of
@@ -64,7 +55,8 @@ def rays(scenes):
     pix = torch.arange(64 * 32)
     lr = trng.lane_rng(trng.seed_from_int(3), pix, 0).with_ctx(0, 0)
     o, d = tcam.generate_rays(cam, lr, pix, 64)
-    rec = tis.make_record(tsc, o, d, tis.intersect(tsc, o, d, 1e-3))
+    rec = tis.make_record(tsc, o, d, tis.intersect(tsc, o, d, 1e-3,
+                                                   tis.hit_tables(tsc)))
     sc = tsh.scatter(tsc, rec, d, lr)
     return (torch.cat([o, sc.origin]).numpy(),
             torch.cat([d, sc.direction]).numpy())
@@ -88,13 +80,14 @@ def test_k4_plain_matches_pallas_interpret(scenes, rays):
     ref = jax.jit(lambda o, d: jpi.intersect_brute_pallas(
         jsc, o, d, 1e-3, interpret=True))(jnp.asarray(o), jnp.asarray(d))
     feats = tis.ray_feature_rows(torch.as_tensor(o), torch.as_tensor(d))
-    t, idx, typ = k4.closest_hit_feats(feats, 1e-3, *_tables(tsc))
+    t, idx, typ = k4.closest_hit_feats(feats, 1e-3, k4.scan_tables(tsc))
     hits = np.asarray(ref.hit)
     assert 1000 < hits.sum() < len(hits)
     np.testing.assert_array_equal(np.asarray(ref.prim_idx), idx.numpy())
     np.testing.assert_array_equal(np.asarray(ref.prim_type), typ.numpy())
     np.testing.assert_allclose(np.asarray(ref.t), t.numpy(), rtol=1e-6, atol=0)
-    h = tis.intersect(tsc, torch.as_tensor(o), torch.as_tensor(d), 1e-3)
+    h = tis.intersect(tsc, torch.as_tensor(o), torch.as_tensor(d), 1e-3,
+                      tis.hit_tables(tsc))
     assert torch.equal(h.t, t) and torch.equal(h.prim_idx, idx)
     assert torch.equal(h.hit, t < 1e30)
 
@@ -128,11 +121,10 @@ def test_k4_plain_tie_order():
     ref_mm = jis.intersect_brute_mm(jscene, jnp.asarray(o), jnp.asarray(d), 1e-3)
     ref_pl = jpi.intersect_brute_pallas(jscene, jnp.asarray(o), jnp.asarray(d),
                                         1e-3, interpret=True)
-    tmm = tis.build_mm_tables(sph, tri)
-    coeffs = tuple(torch.as_tensor(c) for c in
-                   (tmm.sphere_coeff, tmm.tri_coeff, tmm.box_coeff))
+    tscene = types.SimpleNamespace(mm=tis.build_mm_tables(sph, tri).to("cpu"),
+                                   spheres=sph, triangles=tri, boxes=None)
     feats = tis.ray_feature_rows(torch.as_tensor(o), torch.as_tensor(d))
-    t, idx, typ = k4.closest_hit_feats(feats, 1e-3, coeffs, None, (1, nt, 0))
+    t, idx, typ = k4.closest_hit_feats(feats, 1e-3, k4.scan_tables(tscene))
     assert (idx.numpy() == 5).all() and (typ.numpy() == 1).all()
     for ref in (ref_mm, ref_pl):
         np.testing.assert_array_equal(np.asarray(ref.prim_idx), idx.numpy())
@@ -150,12 +142,13 @@ def test_dispatch_routes(scenes, monkeypatch):
     o = torch.as_tensor(np.tile(np.float32([12.0, 2.5, 6.0]), (512, 1)))
     d = torch.as_tensor(np.stack([r.uniform(-16, -8, 512), r.uniform(-3, 0, 512),
                                   r.uniform(-10, -2, 512)], 1).astype(np.float32))
-    a, b = tis.intersect(tsc, o, d, 1e-3), tis.intersect(bare, o, d, 1e-3)
+    a = tis.intersect(tsc, o, d, 1e-3, tis.hit_tables(tsc))
+    b = tis.intersect(bare, o, d, 1e-3, tis.hit_tables(bare))
     assert torch.equal(a.hit, b.hit) and torch.equal(a.prim_idx, b.prim_idx)
     monkeypatch.setattr(tis, "BVH_MIN_PRIMS", 100)
     assert tis.intersect_dispatch(bare, 1e-3) == "bvh"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tis.intersect(bare, o, d, 1e-3)
+        tis.intersect(bare, o, d, 1e-3, tis.hit_tables(bare))
 
 
 @pytest.mark.parametrize("env_mode", [tenv.PHYSICAL_SUN, tenv.HDR_MAP])

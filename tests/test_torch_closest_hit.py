@@ -57,11 +57,7 @@ def _budgets(t_a, i_a, y_a, t_b, i_b, y_b):
 
 def _port(ts, o, d):
     od = torch.as_tensor(np.concatenate([o.T, d.T]))
-    mm = ts.mm
-    t, i, y = k1.closest_hit(od, 1e-3, (mm.sphere_coeff, mm.tri_coeff,
-                                        mm.box_coeff), None,
-                             (ts.spheres.count, ts.triangles.count,
-                              ts.boxes.count))
+    t, i, y = k1.closest_hit(od, 1e-3, k1.scan_tables(ts))
     return t.numpy(), i.numpy(), y.numpy()
 
 

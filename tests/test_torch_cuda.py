@@ -7,10 +7,13 @@ has only PyTorch:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from raytracer_project_tpu_torch import kernels
 from raytracer_project_tpu_torch.core import rng
 from raytracer_project_tpu_torch.models import camera as tcam
 from raytracer_project_tpu_torch.models import environment as tenv
@@ -64,10 +67,10 @@ def inputs(cuda):
 def test_closest_hit_kernel_matches_plain(inputs):
     scene, env, od = inputs
     tables = fs.build_tables(scene, env.to(od.device), tenv.PHYSICAL_SUN)
-    tk, ik, yk = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
-                                tables.counts)
-    _hit_budgets(tk, ik, yk, *k1.closest_hit_plain(od, 1e-3, tables.coeffs,
-                                                   tables.counts))
+    tk, ik, yk = k1.closest_hit(od, 1e-3, tables.scan)
+    _hit_budgets(tk, ik, yk, *k1.closest_hit_plain(od, 1e-3,
+                                                   tables.scan.coeffs,
+                                                   tables.scan.counts))
 
 
 def _hit_budgets(tk, ik, yk, tp, ip, yp):
@@ -88,7 +91,7 @@ def test_decode_kernel_matches_plain(inputs, env_mode):
     scene, env, od = inputs
     tables = fs.build_tables(scene, env.to(od.device), env_mode)
     aparams = fs._aparams(env, od.device)
-    hit = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds, tables.counts)
+    hit = k1.closest_hit(od, 1e-3, tables.scan)
     out = fs.decode(tables, od, *hit, aparams).cpu()
     ref = fs.decode_plain(tables, od, *hit, aparams).cpu()
     for k in range(fs._RO_ROWS):
@@ -106,13 +109,118 @@ def test_closest_hit_feats_kernel_matches_plain(inputs):
     tables = fs.build_tables(scene, env.to(od.device), tenv.PHYSICAL_SUN)
     feats = intersect.ray_feature_rows(od[:3].T, od[3:].T).contiguous()
     k1.closest_hit_feats.launches = 0
-    out = k1.closest_hit_feats(feats, 1e-3, tables.coeffs, tables.bounds,
-                               tables.counts)
+    out = k1.closest_hit_feats(feats, 1e-3, tables.scan)
     assert k1.closest_hit_feats.launches == 1
-    ref = k1.closest_hit_feats_plain(feats, 1e-3, tables.coeffs, tables.counts)
+    ref = k1.closest_hit_feats_plain(feats, 1e-3, tables.scan.coeffs,
+                                     tables.scan.counts)
     _hit_budgets(*out, *ref)
-    _hit_budgets(*out, *k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds,
-                                       tables.counts))
+    _hit_budgets(*out, *k1.closest_hit(od, 1e-3, tables.scan))
+
+
+def _record_entries(monkeypatch):
+    """The C entries launched from now on, in order."""
+    seen = []
+    real = kernels.launch
+    monkeypatch.setattr(kernels, "launch",
+                        lambda entry, *a: seen.append(entry) or real(entry, *a))
+    return seen
+
+
+def _synthetic_scene(n_s, n_t, n_b, seed, dev):
+    """Small spheres, triangles and rotated boxes scattered in [-10, 10]^3,
+    made with numpy from a seed (the first sphere the r=1000 ground)."""
+    r = np.random.default_rng(seed)
+    f32 = lambda x: np.ascontiguousarray(x, dtype=np.float32)
+    center = r.uniform(-10, 10, (n_s, 3))
+    center[0] = (0.0, -1010.0, 0.0)
+    radius = r.uniform(0.05, 0.5, n_s)
+    radius[0] = 1000.0
+    sph = types.SimpleNamespace(center=f32(center), radius=f32(radius),
+                                count=n_s)
+    v0 = r.uniform(-10, 10, (n_t, 3))
+    tri = types.SimpleNamespace(v0=f32(v0), e1=f32(r.normal(0, 0.5, (n_t, 3))),
+                                e2=f32(r.normal(0, 0.5, (n_t, 3))), count=n_t)
+    box = None
+    if n_b:
+        m = np.linalg.qr(r.normal(size=(n_b, 3, 3)))[0] * r.uniform(
+            0.05, 0.4, (n_b, 1, 3))
+        minv = np.linalg.inv(m)
+        pos = r.uniform(-10, 10, (n_b, 3))
+        ext = np.abs(m).sum(-1)
+        box = types.SimpleNamespace(
+            mat=np.zeros(n_b, np.int32), count=n_b, minv=f32(minv.reshape(n_b, 9)),
+            trans=f32(-np.einsum("bij,bj->bi", minv, pos)),
+            aabb_min=f32(pos - ext), aabb_max=f32(pos + ext))
+    return types.SimpleNamespace(
+        mm=intersect.build_mm_tables(sph, tri, box).to(dev), spheres=sph,
+        triangles=tri, boxes=box)
+
+
+@pytest.mark.cuda
+def test_compact_scan_equals_dense(inputs):
+    """K1 and K4 on the compact rows equal the dense 16-term entries (the
+    first port's scan) in t, idx and type on every lane, bit for bit."""
+    scene, _, od = inputs
+    tables = k1.scan_tables(scene)
+    dense = pa.scene_tables(scene)
+    feats = intersect.ray_feature_rows(od[:3].T, od[3:].T).contiguous()
+    assert torch.isfinite(feats).all()
+    for new, ref in ((k1.closest_hit(od, 1e-3, tables),
+                      k1.closest_hit_dense(od, 1e-3, *dense)),
+                     (k1.closest_hit_feats(feats, 1e-3, tables),
+                      k1.closest_hit_feats_dense(feats, 1e-3, *dense))):
+        assert int((ref[0] < 1e30).sum()) > P // 4
+        for a, b in zip(new, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [(1100, 1300, 1237), (700, 900, 0),
+                                    (600, 0, 1030)],
+                         ids=["ragged", "no_boxes", "no_triangles"])
+def test_compact_scan_equals_dense_synthetic(cuda, counts):
+    """A seeded scene with three 512-wide chunks per table and ragged
+    counts (the two-stage ring wraps over 5-11 tiles of 128 rows per
+    table), and scenes without boxes or triangles: K1 and K4 equal the
+    dense entries on every lane with finite features. A few lanes carry an
+    infinite or NaN direction: they run, and are left out."""
+    scene = _synthetic_scene(*counts, seed=sum(counts), dev=cuda)
+    tables = k1.scan_tables(scene)
+    dense = pa.scene_tables(scene)
+    r = np.random.default_rng(4)
+    n = 20_011
+    o = r.uniform(-12, 12, (n, 3)).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    d[:3] = [[np.inf, 0, 0], [np.nan, 1, 0], [0, -np.inf, 1]]
+    o_t, d_t = torch.as_tensor(o).to(cuda), torch.as_tensor(d).to(cuda)
+    od = torch.cat([o_t.T, d_t.T]).contiguous()
+    feats = intersect.ray_feature_rows(o_t, d_t).contiguous()
+    finite = torch.isfinite(feats[:13]).all(0)
+    assert int((~finite).sum()) == 3
+    ref = k1.closest_hit_dense(od, 1e-3, *dense)
+    assert int((ref[0] < 1e30).sum()) > n // 10
+    for entry, out, ref in (
+            ("closest_hit_od", k1.closest_hit(od, 1e-3, tables), ref),
+            ("closest_hit_feats", k1.closest_hit_feats(feats, 1e-3, tables),
+             k1.closest_hit_feats_dense(feats, 1e-3, *dense))):
+        for a, b in zip(out, ref):
+            assert torch.equal(a[finite], b[finite]), entry
+
+
+@pytest.mark.cuda
+def test_compact_tables_refuse_what_they_cannot_hold(inputs):
+    """On the card too, compaction raises on a nonzero outside the slot
+    lists, and the wrapper raises on rows of the wrong shape."""
+    scene, _, od = inputs
+    mm = scene.mm
+    bad = mm.tri_coeff.clone()
+    bad[9, 0, 3] = 0.5
+    with pytest.raises(ValueError, match="structural zero"):
+        k1.scan_tables(scene._replace(mm=mm._replace(tri_coeff=bad)))
+    tables = k1.scan_tables(scene)
+    short = tables._replace(rows=(tables.rows[0][:-1],) + tables.rows[1:])
+    with pytest.raises(ValueError, match="compact rows"):
+        k1.closest_hit(od, 1e-3, short)
 
 
 @pytest.mark.cuda
@@ -124,7 +232,7 @@ def test_shade_advance_kernel_matches_plain(inputs, env_mode):
     scene, env, od = inputs
     dev = od.device
     tables = fs.build_tables(scene, env.to(dev), env_mode)
-    hit = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds, tables.counts)
+    hit = k1.closest_hit(od, 1e-3, tables.scan)
     rec = fs.decode(tables, od, *hit, fs._aparams(env, dev))
     r = np.random.default_rng(1)
     state_f = torch.cat([od, torch.as_tensor(
@@ -151,7 +259,9 @@ def test_shade_advance_kernel_matches_plain(inputs, env_mode):
 
 
 @pytest.mark.cuda
-def test_render_goes_through_the_kernels(cuda):
+def test_render_goes_through_the_kernels(cuda, monkeypatch):
+    """The fused render launches K1-K3, K1 on the compact rows only."""
+    entries = _record_entries(monkeypatch)
     scene = presets.showcase_scene()
     cam = tcam.make_camera(image_width=64, image_height=36, **CAM_KW)
     env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
@@ -168,6 +278,8 @@ def test_render_goes_through_the_kernels(cuda):
     assert stats["steps"] > 0 and stats["segments"] > 0
     img = out["beauty"].cpu()
     assert torch.isfinite(img).all() and img.max() > 0
+    assert "closest_hit_od" in entries
+    assert not [e for e in entries if e.endswith("_dense")]
 
 
 @pytest.mark.cuda
@@ -179,6 +291,7 @@ def test_chunked_render_goes_through_k4(cuda, monkeypatch):
                       (fs, "decode_plain"), (fs, "shade_advance_plain")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
                             plain_calls.append(_n))
+    entries = _record_entries(monkeypatch)
     scene = presets.showcase_scene()
     cam = tcam.make_camera(image_width=32, image_height=18, **CAM_KW)
     env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
@@ -190,6 +303,8 @@ def test_chunked_render_goes_through_k4(cuda, monkeypatch):
     out, stats = integrator.render(scene, cam, env, 0, cfg, with_stats=True)
     assert not plain_calls
     assert k1.closest_hit_feats.launches > 2
+    assert entries.count("closest_hit_feats") == k1.closest_hit_feats.launches
+    assert not [e for e in entries if e.endswith("_dense")]
     assert stats["segments"] > 2 * 32 * 18
     for name, img in out.items():
         assert img.device.type == "cuda" and img.shape == (18, 32, 3), name
@@ -213,7 +328,7 @@ def test_shade_advance_features_kernel_matches_plain(inputs, env_mode):
     box = torch.tensor([[1.0, 0, 0, 0, 0, -3.0, 0.0, -2.0, 2.0, 1.5, 3.0,
                          -1.0 / 0.3, 0.9, 0.6, 0.5, 0.0]], device=dev)
     tables = tables._replace(vparams=torch.cat([tables.vparams, box]))
-    hit = k1.closest_hit(od, 1e-3, tables.coeffs, tables.bounds, tables.counts)
+    hit = k1.closest_hit(od, 1e-3, tables.scan)
     rec = fs.decode(tables, od, *hit, fs._aparams(env, dev))
     r = np.random.default_rng(2)
     state_f = torch.cat([od, torch.as_tensor(np.concatenate([
@@ -302,7 +417,7 @@ def test_ablation_kernel_matches_plain(cuda, variant):
     stats = pa.compare(variant, t, ref)
     assert stats["ok"], stats
     if variant == "full":
-        tk = k1.closest_hit(od, 0.0, coeffs, bounds, counts)[0]
+        tk = k1.closest_hit(od, 0.0, k1.scan_tables(scene))[0]
         assert torch.equal(t, tk)
         nocull = pa.ablate(od, 0.0, coeffs, bounds, counts, "nocull")[0]
         assert torch.equal(t, nocull)

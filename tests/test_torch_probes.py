@@ -267,7 +267,7 @@ def p3():
                      r.uniform(-4, 4, m)], 1)
     d = np.concatenate([look - o[:m], r.normal(size=(m, 3))])
     od = torch.as_tensor(np.concatenate([o.T, d.T]).astype(np.float32))
-    hit = k1.closest_hit_plain(od, 1e-3, tt.coeffs, tt.counts)
+    hit = k1.closest_hit_plain(od, 1e-3, tt.scan.coeffs, tt.scan.counts)
     return js, jt, tt, od, hit
 
 

@@ -55,11 +55,13 @@ class Case:
         pix = torch.arange(W * H)
         lr = trng.lane_rng(trng.seed_from_int(3), pix, 0).with_ctx(0, 0)
         o, d = tcam.generate_rays(self.tcam, lr, pix, W)
-        rec = tis.make_record(self.tsc, o, d, tis.intersect(self.tsc, o, d, 1e-3))
+        tables = tis.hit_tables(self.tsc)
+        rec = tis.make_record(self.tsc, o, d,
+                              tis.intersect(self.tsc, o, d, 1e-3, tables))
         sc = tsh.scatter(self.tsc, rec, d, lr)
         self.o = torch.cat([o, sc.origin])
         self.d = torch.cat([d, sc.direction])
-        self.hit = tis.intersect(self.tsc, self.o, self.d, 1e-3)
+        self.hit = tis.intersect(self.tsc, self.o, self.d, 1e-3, tables)
         self.jhit = jis.Hit(*(jnp.asarray(x.numpy()) for x in self.hit))
         self.jo, self.jd = jnp.asarray(self.o.numpy()), jnp.asarray(self.d.numpy())
         self.trec = tis.make_record(self.tsc, self.o, self.d, self.hit)

@@ -117,11 +117,12 @@ def test_sample_interaction_matches_reference(showcase_fog):
     pix = torch.arange(64 * 32)
     lr = trng.lane_rng(trng.seed_from_int(3), pix, 0).with_ctx(0, 0)
     o, d = tcam.generate_rays(cam, lr, pix, 64)
-    rec = tis.make_record(tsc, o, d, tis.intersect(tsc, o, d, 1e-3))
+    tables = tis.hit_tables(tsc)
+    rec = tis.make_record(tsc, o, d, tis.intersect(tsc, o, d, 1e-3, tables))
     sc = tsh.scatter(tsc, rec, d, lr)
     o, d = torch.cat([o, sc.origin]), torch.cat([d, sc.direction])
     pix2 = torch.cat([pix, pix])
-    hit = tis.intersect(tsc, o, d, 1e-3)
+    hit = tis.intersect(tsc, o, d, 1e-3, tables)
     t, mat, is_vol = tvol.sample_interaction(
         tsc.volumes, o, d, 1e-3, hit,
         trng.lane_rng(trng.seed_from_int(3), pix2, 0).with_ctx(1, 0))
@@ -153,7 +154,7 @@ def test_apply_to_record_frame(showcase_fog):
     o = torch.as_tensor(np.tile(np.float32([12.0, 2.5, 6.0]), (n, 1)))
     d = torch.as_tensor(np.stack([r.uniform(-16, -8, n), r.uniform(-3, 0, n),
                                   r.uniform(-10, -2, n)], 1).astype(np.float32))
-    hit = tis.intersect(tsc, o, d, 1e-3)
+    hit = tis.intersect(tsc, o, d, 1e-3, tis.hit_tables(tsc))
     rec = tis.make_record(tsc, o, d, hit)
     lr = trng.lane_rng(trng.seed_from_int(1), torch.arange(n), 0).with_ctx(0, 0)
     out = tvol.apply_to_record(tsc.volumes, o, d, hit, rec, lr)
