@@ -31,9 +31,10 @@ def to_device(obj, device):
 
 
 def flatten(obj, prefix: str = "") -> dict:
-    """{dotted field path: numpy array} for every leaf of a table."""
+    """{dotted field path: numpy array} for every array leaf of a table
+    (scalar fields, such as a BVH's depth, are left out)."""
     out = {}
-    if obj is None:
+    if obj is None or isinstance(obj, (int, float)):
         return out
     if isinstance(obj, (torch.Tensor, np.ndarray)):
         out[prefix] = np.asarray(obj.cpu() if isinstance(obj, torch.Tensor)

@@ -1,17 +1,30 @@
-"""Procedural assets (twin of raytracer_project_tpu/models/assets.py, subset).
+"""Procedural assets (twin of raytracer_project_tpu/models/assets.py).
 
-Deterministic numpy generators for the showcase's bump maps, wood texture
-and teapot mesh. Loading real asset files (the reference's
-RAYTRACER_TPU_ASSETS root) waits for the port's image and OBJ readers.
+Deterministic numpy generators for the bump maps, the wood texture and the
+meshes (teapot, cylinder, torus, torus knot, pyramid, bowl). A mesh is read
+from <RAYTRACER_TPU_ASSETS>/models/<name>.obj instead when that file exists
+(the reference's asset root); reading its images waits for the port's
+image reader (ROADMAP queue 1), so the maps stay procedural.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 
-from .obj import Mesh
+from .obj import Mesh, load_obj
+
+_ASSET_ENV = "RAYTRACER_TPU_ASSETS"
+
+
+def _asset_path(*parts) -> str | None:
+    root = os.environ.get(_ASSET_ENV)
+    if not root:
+        return None
+    p = os.path.join(root, *parts)
+    return p if os.path.exists(p) else None
 
 
 def _value_noise(size: int, cells: int, seed: int) -> np.ndarray:
@@ -125,35 +138,119 @@ def _lathe(profile_rx: np.ndarray, profile_y: np.ndarray, nu: int = 32) -> Mesh:
     return _grid_mesh(np.stack([x, y, z], -1), True, False)
 
 
+def _obj_or(name: str, fallback) -> Mesh:
+    """<asset root>/models/<name>.obj when it exists and holds triangles,
+    else the procedural mesh `fallback()`."""
+    p = _asset_path("models", f"{name}.obj")
+    if p:
+        mesh = load_obj(p)
+        if mesh is not None and mesh.count:
+            return mesh
+    return fallback()
+
+
+@functools.lru_cache(maxsize=None)
+def torus_mesh(major: float = 1.0, minor: float = 0.35, nu: int = 32,
+               nv: int = 20) -> Mesh:
+    u = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+    v = np.linspace(0, 2 * np.pi, nv, endpoint=False)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    x = (major + minor * np.cos(vv)) * np.cos(uu)
+    z = (major + minor * np.cos(vv)) * np.sin(uu)
+    y = minor * np.sin(vv)
+    return _obj_or("torus",
+                   lambda: _grid_mesh(np.stack([x, y, z], -1), True, True))
+
+
+@functools.lru_cache(maxsize=None)
+def torus_knot_mesh(p: int = 2, q: int = 3, tube: float = 0.22,
+                    nu: int = 96, nv: int = 12) -> Mesh:
+    def gen():
+        t = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+        r = 2.0 + np.cos(q * t)
+        c = np.stack([r * np.cos(p * t), np.sin(q * t), r * np.sin(p * t)], -1)
+        # A Frenet-like frame from finite differences.
+        tan = np.roll(c, -1, 0) - np.roll(c, 1, 0)
+        tan /= np.linalg.norm(tan, axis=-1, keepdims=True)
+        n1 = np.cross(tan, np.array([0.0, 1.0, 0.0]))
+        n1 /= np.maximum(np.linalg.norm(n1, axis=-1, keepdims=True), 1e-9)
+        n2 = np.cross(tan, n1)
+        ang = np.linspace(0, 2 * np.pi, nv, endpoint=False)
+        ring = (np.cos(ang)[None, :, None] * n1[:, None, :]
+                + np.sin(ang)[None, :, None] * n2[:, None, :])
+        return _grid_mesh(c[:, None, :] + tube * ring, True, True)
+
+    return _obj_or("torus_knot", gen)
+
+
 @functools.lru_cache(maxsize=None)
 def cylinder_mesh(radius: float = 1.0, height: float = 2.0, nu: int = 32) -> Mesh:
-    u = np.linspace(0, 2 * np.pi, nu, endpoint=False)
-    ring = np.stack([radius * np.cos(u), np.zeros_like(u), radius * np.sin(u)], -1)
-    bottom = ring.copy()
-    top = ring + np.array([0, height, 0])
-    side = _grid_mesh(np.stack([bottom, top], axis=1), True, False)
-    cb = np.array([0.0, 0.0, 0.0])
-    ct = np.array([0.0, height, 0.0])
-    nb = np.roll(bottom, -1, 0)
-    nt = np.roll(top, -1, 0)
-    v0 = np.concatenate([side.v0, np.tile(cb, (nu, 1)), np.tile(ct, (nu, 1))])
-    v1 = np.concatenate([side.v1, nb, top])
-    v2 = np.concatenate([side.v2, bottom, nt])
-    return Mesh(v0=v0, v1=v1, v2=v2)
+    def gen():
+        u = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+        ring = np.stack([radius * np.cos(u), np.zeros_like(u),
+                         radius * np.sin(u)], -1)
+        bottom = ring.copy()
+        top = ring + np.array([0, height, 0])
+        side = _grid_mesh(np.stack([bottom, top], axis=1), True, False)
+        # Caps as fans around the center.
+        cb = np.array([0.0, 0.0, 0.0])
+        ct = np.array([0.0, height, 0.0])
+        nb = np.roll(bottom, -1, 0)
+        nt = np.roll(top, -1, 0)
+        v0 = np.concatenate([side.v0, np.tile(cb, (nu, 1)), np.tile(ct, (nu, 1))])
+        v1 = np.concatenate([side.v1, nb, top])
+        v2 = np.concatenate([side.v2, bottom, nt])
+        return Mesh(v0=v0, v1=v1, v2=v2)
+
+    return _obj_or("cylinder", gen)
+
+
+@functools.lru_cache(maxsize=None)
+def pyramid_mesh(base: float = 2.0, height: float = 2.0) -> Mesh:
+    def gen():
+        h = base / 2.0
+        b = np.array([[-h, 0, -h], [h, 0, -h], [h, 0, h], [-h, 0, h]],
+                     np.float64)
+        apex = np.array([0.0, height, 0.0])
+        v0 = np.stack([b[0], b[1], b[2], b[3], b[0], b[0]])
+        v1 = np.stack([b[1], b[2], b[3], b[0], b[2], b[3]])
+        v2 = np.stack([apex, apex, apex, apex, b[1], b[2]])
+        return Mesh(v0=v0, v1=v1, v2=v2)
+
+    return _obj_or("pyramid", gen)
+
+
+@functools.lru_cache(maxsize=None)
+def bowl_mesh(radius: float = 1.0, nu: int = 32, nv: int = 12) -> Mesh:
+    def gen():
+        t = np.linspace(np.pi, np.pi / 2, nv)  # bottom pole to rim
+        outer_r = radius * np.abs(np.sin(t))
+        outer_y = radius * (np.cos(t) + 1.0)
+        inner = 0.85
+        rx = np.concatenate([outer_r, outer_r[::-1] * inner])
+        y = np.concatenate([outer_y, outer_y[::-1] * inner + 0.15 * radius])
+        return _lathe(rx, y, nu)
+
+    return _obj_or("bowl", gen)
 
 
 @functools.lru_cache(maxsize=None)
 def teapot_mesh(nu: int = 32) -> Mesh:
     """Lathed teapot-silhouette body plus a tilted cylinder spout."""
-    y = np.array([0.0, 0.05, 0.3, 0.8, 1.2, 1.45, 1.5, 1.62, 1.7], np.float64)
-    r = np.array([0.45, 0.62, 0.85, 0.95, 0.75, 0.45, 0.42, 0.18, 0.0], np.float64)
-    body = _lathe(r, y, nu)
-    spout = cylinder_mesh(0.09, 0.9, 10)
-    c, s = np.cos(np.deg2rad(-55)), np.sin(np.deg2rad(-55))
-    rot = np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float64)
-    place = lambda v: v @ rot.T + np.array([0.0, 0.75, 0.8])
-    return Mesh(
-        v0=np.concatenate([body.v0, place(spout.v0)]),
-        v1=np.concatenate([body.v1, place(spout.v1)]),
-        v2=np.concatenate([body.v2, place(spout.v2)]),
-    )
+    def gen():
+        y = np.array([0.0, 0.05, 0.3, 0.8, 1.2, 1.45, 1.5, 1.62, 1.7],
+                     np.float64)
+        r = np.array([0.45, 0.62, 0.85, 0.95, 0.75, 0.45, 0.42, 0.18, 0.0],
+                     np.float64)
+        body = _lathe(r, y, nu)
+        spout = cylinder_mesh(0.09, 0.9, 10)
+        c, s = np.cos(np.deg2rad(-55)), np.sin(np.deg2rad(-55))
+        rot = np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float64)
+        place = lambda v: v @ rot.T + np.array([0.0, 0.75, 0.8])
+        return Mesh(
+            v0=np.concatenate([body.v0, place(spout.v0)]),
+            v1=np.concatenate([body.v1, place(spout.v1)]),
+            v2=np.concatenate([body.v2, place(spout.v2)]),
+        )
+
+    return _obj_or("teapot", gen)

@@ -2,8 +2,8 @@
 
 A Scene is a NamedTuple of SoA tables; `SceneBuilder.build` assembles them
 in numpy and converts every leaf to a CPU tensor once, and `Scene.to`
-moves the whole scene to a device. Fog volumes (ops/volumes.py) are a
-table of their own; the BVH is not ported yet (ROADMAP queue 1 item 4).
+moves the whole scene to a device. Fog volumes (ops/volumes.py) and the
+BVH (ops/bvh.py FlatBVH) are tables of their own.
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ from .textures import TextureBank, TextureBankBuilder
 
 class Scene(NamedTuple):
     """Frozen scene: primitive, material and texture tables, the
-    closest-hit coefficient tables (ops.intersect.MMTables) and the fog
-    volumes (ops.volumes.VolumeTable, None without media)."""
+    closest-hit coefficient tables (ops.intersect.MMTables), the fog
+    volumes (ops.volumes.VolumeTable, None without media) and the BVH
+    (ops.bvh.FlatBVH, None when built without one)."""
 
     spheres: SphereTable
     triangles: TriangleTable
@@ -30,6 +31,7 @@ class Scene(NamedTuple):
     mm: object = None
     boxes: BoxTable | None = None
     volumes: object = None
+    bvh: object = None
 
     @property
     def primitive_count(self) -> int:
@@ -100,11 +102,9 @@ class SceneBuilder:
             textured=textured if textured.size else None,
         )
 
-    def build(self, with_bvh: bool = False) -> Scene:
-        """Pack every table in numpy, then convert the scene to CPU tensors."""
-        if with_bvh:
-            raise NotImplementedError(
-                "the BVH is not ported yet: ROADMAP queue 1, BVH")
+    def build(self, with_bvh: bool = True) -> Scene:
+        """Pack every table in numpy, build the BVH over them (with_bvh),
+        then convert the scene to CPU tensors."""
         from ..ops.intersect import build_mm_tables
 
         spheres, triangles, boxes = self.geometry.pack()
@@ -117,20 +117,31 @@ class SceneBuilder:
             mm=build_mm_tables(spheres, triangles, boxes),
             volumes=self._pack_volumes(),
         )
+        if with_bvh:
+            from ..ops import bvh as bvh_mod
+
+            scene = scene._replace(bvh=bvh_mod.build_bvh(scene))
         return scene.to("cpu")
 
 
 def scene_from_numpy(d: dict) -> Scene:
     """Scene from a flat {dotted field path: numpy array} dict, e.g.
-    {"spheres.center": ..., "mm.tri_coeff": ...}. Tables whose fields are
-    absent (boxes, mm, volumes) stay None."""
+    {"spheres.center": ..., "mm.tri_coeff": ..., "bvh.escape": ...}, such
+    as the reference package's scene tables. Tables whose fields are absent
+    (boxes, mm, volumes, bvh) stay None."""
+    from ..ops.bvh import flat_bvh_from_numpy
     from ..ops.intersect import MMTables
     from ..ops.volumes import VolumeTable
 
-    def sub(cls, name):
-        keys = {k[len(name) + 1:]: v for k, v in d.items()
+    def fields(name):
+        return {k[len(name) + 1:]: v for k, v in d.items()
                 if k.startswith(name + ".")}
+
+    def sub(cls, name):
+        keys = fields(name)
         return unflatten(cls, keys) if keys else None
+
+    bvh = fields("bvh")
 
     return Scene(
         spheres=sub(SphereTable, "spheres"),
@@ -140,4 +151,5 @@ def scene_from_numpy(d: dict) -> Scene:
         mm=sub(MMTables, "mm"),
         boxes=sub(BoxTable, "boxes"),
         volumes=sub(VolumeTable, "volumes"),
+        bvh=flat_bvh_from_numpy(bvh) if bvh else None,
     )

@@ -158,7 +158,8 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
         if vol.textured is not None:
             raise NotImplementedError(
                 "textured fog on the fused pool needs the unfused pool "
-                "(ROADMAP queue 1 item 3); render it with wavefront=False")
+                "(ROADMAP queue 1, the unfused pool); render it with "
+                "wavefront=False")
         col = lambda x: x.to(torch.float32).reshape(vol.count, -1)
         vparams = torch.cat([
             col(vol.kind), col(vol.center), col(vol.radius), col(vol.box_min),

@@ -14,8 +14,9 @@ subset the fused pool and the chunked integrator reach).
   * `_packed_all` and the `_*_record_soa` decoders: the plain version of
     the hit-record decode kernel (ops/fused_step.py);
   * the chunked integrator's side: `ray_feature_rows`, `intersect_dispatch`
-    and `intersect` (K4 of ops/closest_hit.py), and `make_record` with its
-    AoS decoders `_*_record_from` ([N, 3] vectors, exact arcs).
+    and `intersect` (K4 of ops/closest_hit.py, or the BVH traversal of
+    ops/traverse.py off the card), and `make_record` with its AoS decoders
+    `_*_record_from` ([N, 3] vectors, exact arcs).
 """
 
 from __future__ import annotations
@@ -659,8 +660,8 @@ def make_record(scene, o, d, hit: Hit) -> HitRecord:
 
 # --- closest-hit routing of the chunked integrator ---------------------------
 
-# Scenes without coefficient tables from this many primitives on would go
-# to the BVH (the reference's BVH_MIN_PRIMS).
+# Off the card, scenes with a BVH and this many primitives or more take the
+# BVH (the reference's BVH_MIN_PRIMS).
 BVH_MIN_PRIMS = 8192
 
 
@@ -680,23 +681,31 @@ def ray_feature_rows(o, d):
                         m[0], m[1], m[2], od, oo, one, dd, zero, zero, zero])
 
 
-def intersect_dispatch(scene, tmin) -> str:
-    """The closest-hit route: "k4" (the prebuilt-feature closest hit of
-    ops/closest_hit.py: its kernel on CUDA tensors, its plain version on
-    CPU tensors) when the scene has coefficient tables, else "bvh" for
-    scenes of BVH_MIN_PRIMS primitives or more, else "brute"."""
+def intersect_dispatch(scene, device) -> str:
+    """The closest-hit route for rays on `device`:
+      * on CUDA, "k4" (the prebuilt-feature closest hit of
+        ops/closest_hit.py, its kernel) whenever the scene has coefficient
+        tables, the counterpart of the reference's accelerator route;
+      * elsewhere the reference's order: "bvh" (ops/traverse.py) when the
+        scene has a BVH and BVH_MIN_PRIMS primitives or more, then "k4" in
+        its plain version (the counterpart of the reference's "mm"), then
+        "brute".
+    A CUDA scene without tables takes the same "bvh" / "brute" order."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card and scene.mm is not None:
+        return "k4"
+    if scene.bvh is not None and scene.primitive_count >= BVH_MIN_PRIMS:
+        return "bvh"
     if scene.mm is not None:
         return "k4"
-    if scene.primitive_count >= BVH_MIN_PRIMS:
-        return "bvh"
     return "brute"
 
 
 def hit_tables(scene):
     """What `intersect` needs besides the scene, built once per scene: the
-    closest-hit tables (ops/closest_hit.py ScanTables) on the "k4" route,
-    else None."""
-    if intersect_dispatch(scene, 0.0) != "k4":
+    closest-hit tables (ops/closest_hit.py ScanTables) when rays on the
+    scene's device take the "k4" route, else None."""
+    if intersect_dispatch(scene, scene.spheres.center.device) != "k4":
         return None
     from . import closest_hit
 
@@ -704,12 +713,14 @@ def hit_tables(scene):
 
 
 def intersect(scene, o, d, tmin: float, tables) -> Hit:
-    """Closest hits of the rays o, d f32[N, 3] beyond tmin. tables: the
-    scene's `hit_tables`, built once per scene by the caller."""
-    path = intersect_dispatch(scene, tmin)
+    """Closest hits of the rays o, d f32[N, 3] beyond tmin, by the route
+    `intersect_dispatch` gives for their device. tables: the scene's
+    `hit_tables`, built once per scene by the caller."""
+    path = intersect_dispatch(scene, o.device)
     if path == "bvh":
-        raise NotImplementedError(
-            "BVH traversal is not ported yet (ROADMAP queue 1 item 4: BVH)")
+        from . import traverse
+
+        return traverse.intersect_bvh(scene, o, d, tmin)
     if path == "brute":
         return intersect_brute(scene, o, d, tmin)
     from . import closest_hit

@@ -6,7 +6,8 @@ whose work exceeds the fused work-id cap (2^24 lane decodes in f32) are
 split into sample chunks; lane RNG streams are (pixel, sample)-keyed, so
 the chunk sums equal one oversized call's. The chunked integrator
 (RenderConfig(wavefront=False), ops/integrator.py) is the other engine;
-the unfused pool waits for pixel windows (ROADMAP queue 1 item 3).
+the unfused pool waits for pixel windows (ROADMAP queue 1, the unfused
+pool).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def render_pool(scene, cam, env, seed: int, config, sample_offset: int = 0,
         raise NotImplementedError(
             "this render is outside the fused step (textured fog, or a "
             "texture atlas or HDR map of 2^24 texels or more); the unfused "
-            "pool is ROADMAP queue 1 item 3")
+            "pool is in ROADMAP queue 1, the unfused pool")
     aux = min(config.aux_samples, spp)
     out = None
     segments = steps = 0

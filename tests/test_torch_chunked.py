@@ -132,12 +132,15 @@ def test_k4_plain_tie_order():
 
 
 def test_dispatch_routes(scenes, monkeypatch):
-    """Coefficient tables -> K4; none -> the brute-force oracle (the same
-    hits here), or past BVH_MIN_PRIMS the BVH, which is not ported yet."""
+    """Off the card: the BVH from BVH_MIN_PRIMS primitives on, else
+    coefficient tables -> K4's plain version, else the brute-force oracle,
+    all with the same hits here; on the card K4 whenever the scene has
+    coefficient tables."""
     _, tsc = scenes
-    assert tis.intersect_dispatch(tsc, 1e-3) == "k4"
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert tis.intersect_dispatch(tsc, cpu) == "k4"
     bare = tsc._replace(mm=None)
-    assert tis.intersect_dispatch(bare, 1e-3) == "brute"
+    assert tis.intersect_dispatch(bare, cpu) == "brute"
     r = np.random.default_rng(1)
     o = torch.as_tensor(np.tile(np.float32([12.0, 2.5, 6.0]), (512, 1)))
     d = torch.as_tensor(np.stack([r.uniform(-16, -8, 512), r.uniform(-3, 0, 512),
@@ -146,9 +149,11 @@ def test_dispatch_routes(scenes, monkeypatch):
     b = tis.intersect(bare, o, d, 1e-3, tis.hit_tables(bare))
     assert torch.equal(a.hit, b.hit) and torch.equal(a.prim_idx, b.prim_idx)
     monkeypatch.setattr(tis, "BVH_MIN_PRIMS", 100)
-    assert tis.intersect_dispatch(bare, 1e-3) == "bvh"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tis.intersect(bare, o, d, 1e-3, tis.hit_tables(bare))
+    assert tis.intersect_dispatch(tsc, cpu) == "bvh"
+    assert tis.intersect_dispatch(tsc, cuda) == "k4"
+    assert tis.hit_tables(tsc) is None
+    c = tis.intersect(tsc, o, d, 1e-3, None)
+    assert torch.equal(a.hit, c.hit) and torch.equal(a.prim_idx, c.prim_idx)
 
 
 @pytest.mark.parametrize("env_mode", [tenv.PHYSICAL_SUN, tenv.HDR_MAP])

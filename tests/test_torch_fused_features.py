@@ -279,9 +279,9 @@ def test_textured_fog_refused_on_the_fused_pool():
     cam = tcam.make_camera(image_width=8, image_height=4, **CAM_KW)
     env = tenv.make_environment(**SUN_KW)
     cfg = tint.RenderConfig(width=8, height=4, samples_per_pixel=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the unfused pool"):
         tint.render(scene, cam, env, 0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the unfused pool"):
         tfs.build_tables(scene, env, cfg.env_mode)
     out = tint.render(scene, cam, env, 0,
                       dataclasses.replace(cfg, wavefront=False), device="cpu")

@@ -127,7 +127,7 @@ def test_render_defaults_to_cuda(scene):
 
 def test_out_of_slice_features_raise(scene):
     """What stays out of the port: the differentiable mode (on either
-    engine), textured fog on the fused pool, and the BVH."""
+    engine) and textured fog on the fused pool."""
     cam = tcam.make_camera(image_width=8, image_height=4, **CAM_KW)
     env = tenv.make_environment(**ENV_KW)
     for kw in (dict(differentiable=True),
@@ -142,8 +142,6 @@ def test_out_of_slice_features_raise(scene):
     b.add_fog_sphere((0.0, 0.0, 0.0), 3.0, 0.1, (1.0, 1.0, 1.0), texture_id=tex)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tint.render(b.build(), cam, env, 0, _cfg(8, 4, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpresets.showcase_scene(with_bvh=True)
 
 
 def test_port_imports_no_jax():

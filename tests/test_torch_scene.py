@@ -22,7 +22,8 @@ torch.set_num_threads(2)
 
 
 def _jax_flat(obj, prefix=""):
-    """{dotted path: numpy} of a reference NamedTuple (BVH, media left out)."""
+    """{dotted path: numpy} of a reference NamedTuple (BVH, media left out;
+    tests/test_torch_bvh.py holds the BVH)."""
     out = {}
     if obj is None:
         return out
@@ -47,7 +48,7 @@ def _assert_bit_equal(a: dict, b: dict):
 @pytest.fixture(scope="module")
 def showcase():
     return (_jax_flat(jpresets.showcase_scene(with_bvh=False)),
-            tpresets.showcase_scene())
+            tpresets.showcase_scene(with_bvh=False))
 
 
 def test_showcase_tables_bit_equal(showcase):
@@ -74,7 +75,7 @@ def test_small_builder_tables_bit_equal():
                            transform=geo.compose(geo.rotate_y(30.0),
                                                  geo.rotate_x(-20.0)))
         b.geometry.add_box_triangles((0, 0, 0), (1, 1, 1), red)
-        return b.build()
+        return b.build(with_bvh=False)
 
     from raytracer_project_tpu.models import geometry as jgeo
 

@@ -77,7 +77,8 @@ def _fog_scene(b):
 def showcase_fog():
     return (jpresets.showcase_scene(with_bvh=False, use_fog=True,
                                     fog_density=0.1),
-            tpresets.showcase_scene(use_fog=True, fog_density=0.1))
+            tpresets.showcase_scene(with_bvh=False, use_fog=True,
+                                    fog_density=0.1))
 
 
 def test_fog_builder_tables_bit_equal():
@@ -96,7 +97,7 @@ def test_fog_builder_tables_bit_equal():
         b.geometry.add_sphere((0.0, 0.0, 0.0), 1.0,
                               b.materials.lambertian("m", (0.5, 0.5, 0.5)))
         b.add_fog_box((0, 0, 0), (1, 1, 1), 0.5, (1, 1, 1), texture_id=tex)
-    jt, tt = jb.build(with_bvh=False), tb.build()
+    jt, tt = jb.build(with_bvh=False), tb.build(with_bvh=False)
     np.testing.assert_array_equal(np.asarray(jt.volumes.textured),
                                   tt.volumes.textured.numpy())
 
