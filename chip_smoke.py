@@ -62,8 +62,30 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
  15. bench     `python -m raytracer_project_tpu_torch.bench` for the
                showcase and the funnel, each printing its JSON line;
  16. bench_bvh the traversal against K4 on 262,144 rays per case;
+ 17. pool smoke  the unfused pool (RAYTRACER_TPU_NO_FUSED=1): the 128x72 @
+               4 spp showcase against the reference's smoke_pool_128x72.npz,
+               and the fog showcase with textured fog at 64x36 @ 4 spp (the
+               route integrator.render takes for it) against the CPU;
+ 18. pool full the unfused pool at 800x450 @ 32 spp, beauty, depth 10, on
+               the showcase and the funnel, sort_lanes off and on: wall,
+               segments/s, steps, K1's launches and its ms per launch (CUDA
+               events around each launch), a device-only profile;
+ 19. windows   K3 with pixel_offset != 0 against its plain version at
+               131,072 lanes, timed; 4 windows of cuda:0 (render_sharded /
+               sharded_accumulate) on the fused pool over an 801x451 frame,
+               and explicit pixel ids on the unfused pool and the chunked
+               path, each against the one-window render;
+ 20. sort rays K4 on the 360,000 bounce lanes with sort_rays off and on:
+               equal hits, K4 timed on unsorted and sorted rays, the sort;
+ 21. two process  two spawned ranks on a gloo group render their windows of
+               the 256x144 @ 8 spp showcase on cuda:0, against one process;
+ 22. post      the post chain (bloom, sharpening) card against CPU, window
+               statistics against the image's, a PNG written under build/
+               and read back;
 then one JSON line of per-kernel numbers (K1 and K4 with the funnel's
-numbers as funnel_*), the nvidia-smi line, and the device JSON line last.
+numbers as funnel_*, K1's in the unfused pool as pool_*, K3's window
+variant as window_*, K4's sort_rays numbers), the nvidia-smi line, and the
+device JSON line last.
 Takes no arguments and always runs every phase.
 Exits non-zero without a CUDA device, and outside a checkout of the repo.
 """
@@ -831,11 +853,12 @@ def phase_full(results: dict) -> None:
     _profile("800x450@32spp fused", _showcase(800, 450), _cfg(800, 450, 32))
 
 
-def _profile(label: str, inputs, cfg) -> dict | None:
+def _profile(label: str, inputs, cfg, host: bool = True) -> dict | None:
     """Device time by kernel and the device's idle share over one render
     (seed 1) of `cfg`, from a torch.profiler trace: logged, and returned as
     {"wall_ms", "busy_ms", "kernels": {name: (ms, count)}} (None when the
-    trace holds no device time)."""
+    trace holds no device time). host=False traces the device only (a
+    render of ~10^5 small kernels otherwise takes a minute to trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -843,7 +866,8 @@ def _profile(label: str, inputs, cfg) -> dict | None:
 
     scene, cam, env = inputs
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         out = integrator.render(scene, cam, env, 1, cfg)
         out["beauty"].cpu()
@@ -1730,6 +1754,546 @@ def phase_bench_bvh() -> None:
               f"bench_bvh {row['scene']}: traversal and K4 disagree")
 
 
+# --- phases 17-22: the unfused pool, pixel windows, sort_rays, processes,
+# --- the post chain -----------------------------------------------------------
+
+class _NoFused:
+    """RAYTRACER_TPU_NO_FUSED=1 while inside: the unfused pool for every
+    render (the reference's switch, utils/smoke.py:307-336)."""
+
+    def __enter__(self):
+        self.old = os.environ.get("RAYTRACER_TPU_NO_FUSED")
+        os.environ["RAYTRACER_TPU_NO_FUSED"] = "1"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("RAYTRACER_TPU_NO_FUSED")
+        else:
+            os.environ["RAYTRACER_TPU_NO_FUSED"] = self.old
+
+
+def _textured_fog_showcase(width, height, device):
+    """The fog showcase with its fog's phase material textured by the
+    scene's checker (outside the fused step: the unfused pool renders it)."""
+    import torch
+
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.models import presets
+    from raytracer_project_tpu_torch.models import textures
+
+    scene = presets.showcase_scene(use_fog=True, fog_density=0.03)
+    vmat = int(scene.volumes.mat[0])
+    checker = int(torch.nonzero(scene.textures.kind
+                                == textures.KIND_CHECKER)[0, 0])
+    tex = torch.as_tensor(scene.materials.texture_id).clone()
+    tex[vmat] = checker
+    scene = scene._replace(
+        materials=scene.materials._replace(texture_id=tex),
+        volumes=scene.volumes._replace(textured=torch.tensor([vmat])))
+    return (scene.to(device),
+            tcam.make_camera(image_width=width, image_height=height, **CAM_KW),
+            tenv.make_environment(**ENV_KW))
+
+
+def phase_pool_smoke() -> None:
+    """The reference's pool-render stage (utils/smoke.py:307-336): the
+    128x72 @ 4 spp showcase through the unfused pool on the card against
+    smoke_pool_128x72.npz; then the fog showcase with textured fog at 64x36
+    @ 4 spp on the pool (the route render takes for it) against the port's
+    own CPU render; both under the cross-backend budgets, with the counts
+    read around each render."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch.ops import integrator
+
+    scene, cam, env = _showcase(128, 72)
+    _reset_counters()
+    with _NoFused(), _PlainCallCounter() as plain:
+        out, st = integrator.render(scene, cam, env, 0, _cfg(128, 72, 4),
+                                    with_stats=True)
+        img = out["beauty"].cpu().numpy()
+    launches = _launches(FUSED_KERNELS)
+    log(f"pool smoke: 128x72@4spp engine {st['engine']}, launches {launches}, "
+        f"plain calls {plain.calls}, segments {st['segments']}, steps "
+        f"{st['steps']}")
+    check(st["engine"] == "pool", "pool smoke: not the unfused pool")
+    check(launches["closest_hit"] > 0, "pool smoke: K1 was not launched")
+    check(launches["decode"] == 0 and launches["shade_advance"] == 0,
+          "pool smoke: the fused step ran")
+    check(plain.calls == 0, "a plain version ran during the CUDA render")
+    check(img.max() > 0, "pool smoke image black")
+    golden = np.load(os.path.join(REPO, "tests", "goldens",
+                                  "smoke_pool_128x72.npz"))["beauty"]
+    _image_agree("pool 128x72@4spp vs CPU golden smoke_pool_128x72.npz", img,
+                 golden)
+
+    cfg = dataclasses.replace(_cfg(64, 36, 4), use_albedo=True)
+    scene, cam, env = _textured_fog_showcase(64, 36, torch.device("cuda"))
+    _reset_counters()
+    with _PlainCallCounter() as plain:
+        card, st = integrator.render(scene, cam, env, 2, cfg, with_stats=True)
+        card = {k: v.cpu().numpy() for k, v in card.items()}
+    launches = _launches(("closest_hit",))
+    check(st["engine"] == "pool", "textured fog: not the unfused pool")
+    check(launches["closest_hit"] > 0, "textured fog: K1 was not launched")
+    check(plain.calls == 0, "a plain version ran during the CUDA render")
+    t0 = time.perf_counter()
+    cpu = integrator.render(scene.to("cpu"), cam, env, 2, cfg, device="cpu")
+    log(f"pool smoke: textured fog 64x36@4spp launches {launches}, segments "
+        f"{st['segments']}; CPU render {time.perf_counter() - t0:.1f} s")
+    for name in ("beauty", "albedo"):
+        _image_agree(f"textured fog {name} card vs CPU", card[name],
+                     cpu[name].numpy())
+
+
+class _K1Events:
+    """CUDA events around every K1 launch (the C entry closest_hit_od)
+    while inside: K1's device ms per launch in a render, without the
+    profiler (2 events per launch)."""
+
+    def __enter__(self):
+        import torch
+
+        from raytracer_project_tpu_torch import kernels
+
+        self.pairs, self.orig = [], kernels.launch
+
+        def timed(entry, *args):
+            if entry != "closest_hit_od":
+                return self.orig(entry, *args)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            self.orig(entry, *args)
+            ev[1].record()
+            self.pairs.append(ev)
+
+        kernels.launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        from raytracer_project_tpu_torch import kernels
+
+        kernels.launch = self.orig
+
+    def ms_per_launch(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / len(self.pairs)
+
+
+def _pool_render(label, scene, cam, env, cfg, seed=1):
+    """One timed unfused-pool render (K1's count read around it, its
+    launches timed with CUDA events) and a device-only profile of it;
+    (wall s, stats, K1 ms per launch)."""
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch.ops import integrator
+
+    with _NoFused():
+        _reset_counters()
+        torch.cuda.synchronize()
+        with _K1Events() as k1:
+            t0 = time.perf_counter()
+            out, stats = integrator.render(scene, cam, env, seed, cfg,
+                                           with_stats=True)
+            img = out["beauty"].cpu().numpy()
+            wall = time.perf_counter() - t0
+        launches = _launches(FUSED_KERNELS)
+        prof = _profile(label, (scene, cam, env), cfg, host=False)
+    check(stats["engine"] == "pool" and launches["closest_hit"] > 0,
+          f"{label}: not the unfused pool through K1")
+    check(launches["decode"] == 0 and launches["shade_advance"] == 0,
+          f"{label}: the fused step ran")
+    check(bool(np.isfinite(img).all()) and img.max() > 0,
+          f"{label}: image not finite or black")
+    k1_ms = k1.ms_per_launch()
+    idle = (max(0.0, 1.0 - prof["busy_ms"] / prof["wall_ms"]) if prof
+            else None)
+    log(f"pool full {label}: wall {wall:.3f} s, segments {stats['segments']}, "
+        f"steps {stats['steps']}, segments/s {stats['segments'] / wall:.4g}, "
+        f"K1 launches {launches['closest_hit']}, K1 {k1_ms:.4f} ms per launch "
+        f"(events), idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'} (profile), "
+        f"mean {img.mean():.4f}")
+    return wall, stats, k1_ms
+
+
+def phase_pool_full(results: dict) -> None:
+    """The unfused pool at full size, beauty, depth 10, 800x450 @ 32 spp
+    (262,144 lanes): the showcase and the funnel, each with sort_lanes off
+    and on (the lanes re-sorted by direction octant and origin cell after
+    every step), each timed and profiled after a small warm-up: K1's ms
+    per launch both ways."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_project_tpu_torch import bench
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.models import presets
+    from raytracer_project_tpu_torch.ops import integrator
+
+    dev = torch.device("cuda")
+    cfg = _cfg(800, 450, 32)
+    cases = (("showcase", _showcase(800, 450), ""),
+             ("funnel", (presets.bvh_stress_scene(n_spheres=8192,
+                                                  mesh_detail=2).to(dev),
+                         tcam.make_camera(image_width=800, image_height=450,
+                                          **bench.FUNNEL_CAM),
+                         tenv.make_environment(**ENV_KW)), "funnel_"))
+    with _NoFused():
+        integrator.render(*_showcase(64, 36), 0, _cfg(64, 36, 1))  # warm-up
+    for name, inputs, key in cases:
+        segs = {}
+        for sort in (False, True):
+            label = f"{name} sort_lanes={sort}"
+            wall, stats, k1_ms = _pool_render(
+                label, *inputs, dataclasses.replace(cfg, sort_lanes=sort))
+            segs[sort] = stats["segments"]
+            tag = "sorted_" if sort else ""
+            results["closest_hit"][f"{key}pool_{tag}ms"] = k1_ms
+            results["closest_hit"][f"{key}pool_{tag}wall_s"] = wall
+        check(segs[False] == segs[True],
+              f"pool full {name}: sort_lanes changed the segments")
+
+
+def _window_state(n_local, poff, cam, tables, aparams, bparams, sp):
+    """The bounce state of a pool window: camera rays of the 131,072 first
+    work items of the window [poff, poff + n_local) (global pixel ids),
+    one plain step later."""
+    import torch
+
+    from raytracer_project_tpu_torch.core import rng
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+    from raytracer_project_tpu_torch.ops import fused_step as fs
+
+    dev = torch.device("cuda")
+    w = torch.arange(P_MAIN, device=dev)
+    li = (poff + w % n_local).to(torch.int32)
+    samp = (w // n_local).to(torch.int32)
+    o, d = tcam.generate_rays_soa(cam.to(dev), rng.LaneRng(
+        sp.seed, rng.u32(li), rng.u32(samp), 0), li, 800)
+    ones = torch.ones(P_MAIN, device=dev)
+    state_f = torch.stack([*o, *d, ones, ones, ones, 0 * ones, 0 * ones,
+                           0 * ones]).contiguous()
+    state_i = torch.stack([torch.ones_like(li), torch.zeros_like(li), samp,
+                           li]).contiguous()
+    next_work = torch.tensor([P_MAIN], dtype=torch.int32, device=dev)
+    segments = torch.zeros(1, dtype=torch.int64, device=dev)
+    rec0 = fs.decode_plain(tables, state_f[:6], *k1.closest_hit_plain(
+        state_f[:6], 1e-3, tables.scan.coeffs, tables.scan.counts), aparams)
+    step1 = fs.shade_advance_plain(tables, rec0, state_f, state_i, next_work,
+                                   segments, bparams, sp)
+    return step1[0].contiguous(), step1[1].contiguous(), step1[4], step1[5]
+
+
+def _sums_agree(name, got, ref, rtol=3e-4, atol=3e-4) -> None:
+    """Sums equal up to float reassociation (the card's scatter-adds run in
+    no fixed order): rtol/atol 3e-4, as tests/test_fused_step.py allows."""
+    import torch
+
+    for f, a, b in zip(got._fields, got, ref):
+        a, b = a.to(b.device), b
+        ok = torch.isclose(a, b, rtol=rtol, atol=atol)
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        check(bool(ok.all()), f"{name} {f}: {int((~ok).sum())} values differ "
+              f"(max |d| {err:.3g})")
+    log(f"  {name}: every buffer within rtol/atol {rtol:g}")
+
+
+def phase_windows(results: dict) -> None:
+    """Pixel windows on the card: K3 with pixel_offset != 0 against its
+    plain version at 131,072 lanes (timed); render_sharded over 4 windows
+    of cuda:0 on the fused pool, on a frame of 801x451 pixels (not a
+    multiple of 4); sharded_accumulate with explicit pixel ids on the
+    unfused pool and the chunked path. Each against the one-window render:
+    segments exactly (plus the padding's), sums within rtol/atol 3e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch.core import rng
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.ops import fused_step as fs
+    from raytracer_project_tpu_torch.ops import integrator
+    from raytracer_project_tpu_torch.parallel import render as prender
+
+    dev = torch.device("cuda")
+    scene, cam, env = _showcase(800, 450)
+    tables = fs.build_tables(scene, env, tenv.PHYSICAL_SUN)
+    aparams = fs._aparams(env, dev)
+    bparams = fs._bparams(cam, env, dev)
+    n_local, poff = 800 * 450 // 4, 2 * 800 * 450 // 4
+    sp = fs.StepParams(seed=rng.seed_from_int(0), sample_offset=0,
+                       n_pixels=n_local, width=800, total_work=n_local * 32,
+                       max_depth=10, env_mode=tenv.PHYSICAL_SUN,
+                       pixel_offset=poff)
+    state = _window_state(n_local, poff, cam, tables, aparams, bparams, sp)
+    rec = fs.trace_decode(tables, state[0][:6].contiguous(), aparams)
+    out = fs.shade_advance(tables, rec, *state, bparams, sp)
+    ref = fs.shade_advance_plain(tables, rec, *state, bparams, sp)
+    torch.cuda.synchronize()
+    err = 0.0
+    for k, (a, b) in enumerate(zip(out, ref)):
+        if a.dtype.is_floating_point:
+            err = max(err, rows_agree(f"K3 window output {k}", a, b, ()))
+        else:
+            check(int((a != b).sum()) == 0, f"K3 window: output {k} differs")
+    tgt = out[3][0]
+    fin = tgt < n_local
+    check(bool(((tgt[fin] + poff) == state[1][3][fin]).all()),
+          "K3 window: a target is not its lane's slot")
+    check(bool(((out[1][3] >= poff) & (out[1][3] < poff + n_local)).all()),
+          "K3 window: a respawned lane left the window")
+    t_win = time_ms("K3 window", lambda: fs.shade_advance(
+        tables, rec, *state, bparams, sp))
+    t_winp = time_ms("K3 window plain", lambda: fs.shade_advance_plain(
+        tables, rec, *state, bparams, sp), rounds=3)
+    results["shade_advance"].update(window_ms=t_win, window_plain_ms=t_winp,
+                                    window_max_abs_err=err)
+    log(f"windows: K3 window (offset {poff}, {n_local} pixels) {t_win:.4f} "
+        f"ms/launch, plain {t_winp:.4f} ms, {int(fin.sum())} finishing "
+        f"lanes; i32 outputs exact, floats within 1e-5")
+
+    # Four windows of cuda:0 on the fused pool: 801x451 = 361,251 pixels.
+    w, h, spp = 801, 451, 8
+    cfg = _cfg(w, h, spp)
+    cam_w = tcam.make_camera(image_width=w, image_height=h, **CAM_KW)
+    full, fst = integrator.accumulate_samples(scene, cam_w, env, 3, cfg,
+                                              with_stats=True)
+    mesh = prender.make_mesh(4, device="cuda:0")
+    ids = prender._padded_pixel_ids(cfg.n_pixels, 4)
+    pad = ids.shape[0] - cfg.n_pixels
+    _reset_counters()
+    acc, st = prender.sharded_accumulate(scene, cam_w, env, 3, cfg, ids, 0,
+                                         mesh=mesh, with_stats=True)
+    launches = _launches(FUSED_KERNELS)
+    check(all(v > 0 for v in launches.values()),
+          "windows: a kernel was not launched")
+    phantom = integrator.accumulate_samples(
+        scene, cam_w, env, 3, cfg, pixel_offset=cfg.n_pixels,
+        n_pixels_local=pad, with_stats=True)[1]["segments"]
+    log(f"windows: 4 fused windows of {ids.shape[0] // 4} pixels ({pad} "
+        f"padding), launches {launches}, segments {st['segments']} = "
+        f"{fst['segments']} + {phantom} (padding), steps {st['steps']} "
+        f"(one window {fst['steps']})")
+    check(st["segments"] == fst["segments"] + phantom,
+          "windows: the fused windows' segments differ")
+    _sums_agree("4 fused windows vs the frame",
+                integrator.SampleBuffers(*(x[:cfg.n_pixels] for x in acc)), full)
+    img = prender.render_sharded(scene, cam_w, env, 3, cfg, mesh)["beauty"]
+    check(bool(torch.isfinite(img).all()), "render_sharded: not finite")
+
+    # Explicit pixel ids (every third pixel, shuffled) over 4 windows: the
+    # unfused pool and the chunked path.
+    w, h, spp = 200, 113, 4
+    cam_s = tcam.make_camera(image_width=w, image_height=h, **CAM_KW)
+    n = w * h
+    ids = np.random.default_rng(5).permutation(np.arange(0, n, 3))[:7000]
+    for engine, kw in (("pool", {}), ("chunked", dict(wavefront=False))):
+        cfg = dataclasses.replace(_cfg(w, h, spp), **kw)
+        names = ("closest_hit",) if engine == "pool" else CHUNKED_KERNELS
+        # The frame on the same engine (the fused pool's K2 rounds the
+        # records otherwise than the unfused pool).
+        with _NoFused():
+            whole, wst = integrator.accumulate_samples(scene, cam_s, env, 4,
+                                                       cfg, with_stats=True)
+        _reset_counters()
+        acc, st = prender.sharded_accumulate(scene, cam_s, env, 4, cfg, ids, 0,
+                                             mesh=mesh, with_stats=True)
+        launches = _launches(names)
+        one, ost = integrator.accumulate_samples(
+            scene, cam_s, env, 4, cfg, torch.as_tensor(ids, device=dev),
+            with_stats=True)
+        log(f"windows: explicit ids on the {engine} path ({len(ids)} of {n} "
+            f"pixels over 4 windows), launches {launches}, segments "
+            f"{st['segments']} (one call {ost['segments']})")
+        check(all(v > 0 for v in launches.values()),
+              f"windows {engine}: a kernel was not launched")
+        check(st["segments"] == ost["segments"],
+              f"windows {engine}: segments differ")
+        _sums_agree(f"{engine} pixel ids vs one call", acc, one)
+        sel = torch.as_tensor(ids, device=dev)
+        _sums_agree(f"{engine} pixel ids vs the frame", acc,
+                    integrator.SampleBuffers(*(x[sel] for x in whole)))
+        check(wst["segments"] > 0, "windows: empty frame")
+
+
+def phase_sort_rays(results: dict) -> None:
+    """K4 on the chunked path's 360,000 bounce lanes (phase_k4's set) with
+    sort_rays off and on: equal hits lane for lane through intersect, and
+    K4 timed on the rays in their order and in the sorted order, the sort
+    and un-sort timed beside."""
+    import torch
+
+    from raytracer_project_tpu_torch.core import rng
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+    from raytracer_project_tpu_torch.ops import intersect, shade
+
+    dev = torch.device("cuda")
+    scene = _showcase(800, 450)[0]
+    cam = tcam.make_camera(image_width=800, image_height=450, **CAM_KW).to(dev)
+    tables = intersect.hit_tables(scene)
+    pix = torch.arange(P_CHUNKED, device=dev)
+    lr = rng.lane_rng(rng.seed_from_int(0), pix, 0).with_ctx(0, 0)
+    o, d = tcam.generate_rays(cam, lr, pix, 800)
+    first = intersect.intersect(scene, o, d, 1e-3, tables)
+    sc = shade.scatter(scene, intersect.make_record(scene, o, d, first), d, lr)
+    ro, rd = sc.origin.contiguous(), sc.direction.contiguous()
+    _reset_counters()
+    plain = intersect.intersect(scene, ro, rd, 1e-3, tables)
+    srt = intersect.intersect(scene, ro, rd, 1e-3, tables, sort_rays=True)
+    torch.cuda.synchronize()
+    check(k1.closest_hit_feats.launches == 2, "sort rays: K4 launches")
+    for f, a, b in zip(plain._fields, plain, srt):
+        check(bool(torch.equal(a, b)), f"sort rays: {f} differs")
+    order, dest = intersect.sort_order(scene, ro, rd)
+    feats = intersect.ray_feature_rows(ro, rd).contiguous()
+    feats_s = intersect.ray_feature_rows(ro[order], rd[order]).contiguous()
+    k4 = lambda f: (lambda: k1.closest_hit_feats(f, 1e-3, tables))
+    t_u, t_s = time_ms("K4 unsorted", k4(feats)), time_ms("K4 sorted", k4(feats_s))
+    t_s = (t_s + time_ms("K4 sorted", k4(feats_s))) / 2
+    t_u = (t_u + time_ms("K4 unsorted", k4(feats))) / 2
+    t_sort = time_ms("sort_order", lambda: intersect.sort_order(scene, ro, rd),
+                     rounds=3)
+    t_all = time_ms("intersect sort_rays=True", lambda: intersect.intersect(
+        scene, ro, rd, 1e-3, tables, sort_rays=True), rounds=3)
+    groups = int(torch.unique(intersect._sort_key(
+        ro, rd, torch.cat([k1.coarsen_bounds(b) for b in (
+            scene.mm.sphere_bounds, scene.mm.tri_bounds,
+            scene.mm.box_bounds)]))[0]).numel())
+    results["closest_hit_feats"].update(unsorted_ms=t_u, sorted_ms=t_s,
+                                        sort_order_ms=t_sort,
+                                        sort_rays_ms=t_all)
+    log(f"sort rays: {P_CHUNKED} bounce lanes, equal hits ({int(plain.hit.sum())}"
+        f" hits), {groups} chunk keys; K4 {t_u:.4f} ms unsorted, {t_s:.4f} ms "
+        f"sorted; sort_order {t_sort:.4f} ms; intersect with sort_rays "
+        f"{t_all:.4f} ms")
+
+
+def _two_process_worker(rank: int, world: int, init: str, out: str) -> None:
+    """One rank of phase_two_process: its window of the 256x144 @ 8 spp
+    showcase on cuda:0, gathered to every rank; rank 0 writes the frame."""
+    import numpy as np
+
+    from raytracer_project_tpu_torch.parallel import distributed
+
+    check(distributed.init_distributed(num_processes=world, process_id=rank,
+                                       init_method=init), "no process group")
+    try:
+        scene, cam, env = _showcase(256, 144)
+        img = distributed.render_distributed(scene, cam, env, 6,
+                                             _cfg(256, 144, 8), device="cuda:0")
+        if distributed.is_host0():
+            np.save(out, img["beauty"])
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def phase_two_process():
+    """torch.multiprocessing spawns 2 ranks; each joins a gloo group
+    (init_distributed), renders its window of the 256x144 @ 8 spp showcase
+    on cuda:0 and gathers to rank 0, which writes the frame; it equals the
+    one-process render within rtol/atol 3e-4. A rank that fails fails the
+    phase. Returns the one-process beauty (f32 [144, 256, 3], host)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from raytracer_project_tpu_torch.ops import integrator
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    init = os.path.join(out_dir, "two_process_init")
+    if os.path.exists(init):
+        os.remove(init)
+    out = os.path.join(out_dir, "two_process_beauty.npy")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_two_process_worker,
+                             args=(2, f"file://{init}", out), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + 300
+    while not ctx.join(timeout=1):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("two process: the ranks did not finish")
+    got = np.load(out)
+    scene, cam, env = _showcase(256, 144)
+    one = integrator.render(scene, cam, env, 6, _cfg(256, 144, 8))["beauty"]
+    one = one.cpu().numpy()
+    ok = np.isclose(got, one, rtol=3e-4, atol=3e-4)
+    log(f"two process: 2 ranks in {time.perf_counter() - t0:.1f} s; frame "
+        f"{got.shape}, {int((~ok).sum())} values off the one-process render "
+        f"(max |d| {float(np.abs(got - one).max()):.3g})")
+    check(bool(ok.all()) and bool(np.isfinite(got).all()),
+          "two process: the frame differs from the one-process render")
+    return torch.as_tensor(one)
+
+
+def phase_post(beauty) -> None:
+    """The post chain on the showcase beauty: update_post_processing with
+    bloom and sharpening on the card and on the CPU (within 1e-5), the
+    statistics of 4 windows on the card (analyze_sharded) against the
+    whole image's, and the exported PNG written under build/ by save_png
+    (PIL where it is installed), the native writer and the pure-Python one,
+    each read back pixel for pixel."""
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch import native
+    from raytracer_project_tpu_torch.core import colorspace
+    from raytracer_project_tpu_torch.ops import post
+    from raytracer_project_tpu_torch.parallel import render as prender
+    from raytracer_project_tpu_torch.utils import image_io
+
+    cfg = post.PostConfig(use_bloom=True, use_sharpening=True)
+    params = post.make_post_params(exposure=0.3)
+    card = post.update_post_processing(beauty.cuda(), params.to("cuda"), cfg)
+    cpu = post.update_post_processing(beauty.cpu(), params, cfg)
+    d = float((card.cpu() - cpu).abs().max())
+    log(f"post: update_post_processing {tuple(beauty.shape)} card vs CPU max "
+        f"|d| {d:.3g}")
+    check(d <= 1e-5, "post: card and CPU disagree")
+    flat = beauty.cuda().reshape(-1, 3)
+    whole = post.analyze_framebuffer(flat)
+    parts = prender.analyze_sharded(flat, prender.make_mesh(4, device="cuda:0"))
+    log(f"post: statistics avg {float(whole.average_luminance):.5f} / "
+        f"{float(parts.average_luminance):.5f}, max "
+        f"{float(whole.max_luminance):.4f} / {float(parts.max_luminance):.4f}")
+    check(bool(torch.equal(whole.histogram, parts.histogram))
+          and float(whole.max_luminance) == float(parts.max_luminance)
+          and abs(float(whole.average_luminance)
+                  - float(parts.average_luminance))
+          <= 1e-5 * float(whole.average_luminance),
+          "post: the windows' statistics differ from the image's")
+    px = colorspace.to_srgb_u8(card).cpu().numpy()
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    for writer, write in (("save_png", image_io.save_png),
+                          ("native", native.write_png),
+                          ("pure", image_io._save_png_pure)):
+        path = os.path.join(out_dir, f"showcase_post_{writer}.png")
+        if write(path, px) is False:
+            raise AssertionError(f"post: the {writer} writer failed")
+        back = image_io.read_png(path)
+        log(f"post: {writer} wrote {os.path.getsize(path)} bytes, read back "
+            f"{'equal' if np.array_equal(back, px) else 'DIFFERENT'}")
+        check(np.array_equal(back, px), f"post: the {writer} PNG differs")
+
+
 def main() -> int:
     import torch
 
@@ -1769,6 +2333,11 @@ def main() -> int:
     phase_baseline_configs()
     phase_bench()
     phase_bench_bvh()
+    phase_pool_smoke()
+    phase_pool_full(results)
+    phase_windows(results)
+    phase_sort_rays(results)
+    phase_post(phase_two_process())
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -126,3 +126,8 @@ def acos_poly(x):
     xc = torch.clamp(x, -1.0, 1.0)
     s = sqrt(torch.clamp(1.0 - xc * xc, min=0.0))
     return atan2_poly(s, xc)
+
+
+def luminance(c):
+    """Rec.709 luminance of [..., 3] colours (vec3.hpp:106-108)."""
+    return c[..., 0] * 0.2126 + c[..., 1] * 0.7152 + c[..., 2] * 0.0722

@@ -26,6 +26,10 @@
 //         attenuation on a spec lane, the routing at its first hit, the
 //         firefly-clamped contributions (:921-963, :1003-1016), and work
 //         ids from n_beauty on respawning as spec lanes (:1031-1078).
+// Pixel windows: lane pixel ids stay global (RNG streams and the camera
+// decode do not change), n_pixels is the window's size, a respawned slot s
+// becomes pixel s + pixel_offset, and targets are li - pixel_offset
+// (reference :564-567, :971, :1001-1012, :1041). Full frames pass 0.
 // Outputs are [k, P] rows that the pool adds with one index_add_: contrib
 // (beauty 3, the enabled AOV values, reflection 3, refraction 3) and tgt
 // (beauty, AOV, reflection, refraction targets); fused_step.acc_channels
@@ -195,9 +199,10 @@ __global__ void shade_kernel(
     const int* __restrict__ si, int p, const float* __restrict__ bp,
     const float* __restrict__ atlas_rows, const float* __restrict__ grad_rows,
     const float* __restrict__ env_rows, const float* __restrict__ vparams,
-    uint32_t seed, int n_pixels, int max_depth, int env_mode, int aux,
-    float z_max, int aov_mask, int use_reflection, int use_refraction,
-    int n_volumes, float* __restrict__ out_f, int* __restrict__ out_i,
+    uint32_t seed, int pixel_offset, int n_pixels, int max_depth,
+    int env_mode, int aux, float z_max, int aov_mask, int use_reflection,
+    int use_refraction, int n_volumes, float* __restrict__ out_f,
+    int* __restrict__ out_i,
     float* __restrict__ contrib, int* __restrict__ tgt,
     int* __restrict__ counts) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -418,7 +423,9 @@ __global__ void shade_kernel(
 
     bool done = live && !active;
     bool done_beauty = done && !is_spec;
-    tgt[i] = done_beauty ? li : n_pixels;
+    // li is the global pixel id; the accumulator holds the window.
+    int slot = li - pixel_offset;
+    tgt[i] = done_beauty ? slot : n_pixels;
     contrib[i] = done_beauty ? rad.x : 0.0f;
     contrib[p + i] = done_beauty ? rad.y : 0.0f;
     contrib[2 * p + i] = done_beauty ? rad.z : 0.0f;
@@ -427,7 +434,7 @@ __global__ void shade_kernel(
     // AOVs of bounce-0 beauty lanes within the aux budget.
     if (AOVS) {
       bool is_aux = live && at0 && samp < aux && !is_spec;
-      tgt[p + i] = is_aux ? li : n_pixels;
+      tgt[p + i] = is_aux ? slot : n_pixels;
       trow_out = 2;
       if (aov_mask & AOV_ALBEDO) {
         const float tc[3] = {tex3.x, tex3.y, tex3.z};
@@ -467,8 +474,8 @@ __global__ void shade_kernel(
       const float sc[3] = {attn0.x * rad.x * fscale, attn0.y * rad.y * fscale,
                            attn0.z * rad.z * fscale};
       bool d_refl = done && to_refl, d_refr = done && to_refr;
-      tgt[trow_out * p + i] = d_refl ? li : n_pixels;
-      tgt[(trow_out + 1) * p + i] = d_refr ? li : n_pixels;
+      tgt[trow_out * p + i] = d_refl ? slot : n_pixels;
+      tgt[(trow_out + 1) * p + i] = d_refr ? slot : n_pixels;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         contrib[(crow + k) * p + i] = d_refl ? sc[k] : 0.0f;
@@ -523,7 +530,8 @@ __device__ long long block_sum(long long v, long long* red) {
 template <bool SPEC>
 __global__ void respawn_kernel(
     int p, const float* __restrict__ bp, uint32_t seed, int sample_offset,
-    int n_pixels, float inv_n, int width, float inv_w, int total_work,
+    int pixel_offset, int n_pixels, float inv_n, int width, float inv_w,
+    int total_work,
     int n_beauty, const int* __restrict__ next_work_in,
     const long long* __restrict__ seg_in, const int* __restrict__ counts,
     float* __restrict__ out_f, int* __restrict__ out_i,
@@ -584,7 +592,8 @@ __global__ void respawn_kernel(
   float sli = wf - sr * n;
   sr = sli < 0.0f ? sr - 1.0f : (sli >= n ? sr + 1.0f : sr);
   sli = wf - sr * n;
-  int new_li = (int)sli;
+  // The window's slot -> the global pixel id (RNG streams and raygen).
+  int new_li = (int)sli + pixel_offset;
   int new_samp = sample_offset + (int)sr;
   V3 o, d;
   raygen(bp, seed, new_li, new_samp, width, inv_w, o, d);
@@ -610,17 +619,19 @@ __global__ void respawn_kernel(
   (const float*)rec, (const float*)state_f, (const int*)state_i, p,          \
       (const float*)bparams, (const float*)atlas_rows,                       \
       (const float*)grad_rows, (const float*)env_rows, (const float*)vparams, \
-      seed, n_pixels, max_depth, env_mode, aux, z_max, aov_mask,             \
-      use_reflection, use_refraction, n_volumes, (float*)out_f, (int*)out_i, \
+      seed, pixel_offset, n_pixels, max_depth, env_mode, aux, z_max,         \
+      aov_mask, use_reflection, use_refraction, n_volumes, (float*)out_f,    \
+      (int*)out_i,                                                           \
       (float*)contrib, (int*)tgt, (int*)counts
 
 extern "C" int shade_advance_launch(
     const void* rec, const void* state_f, const void* state_i, int p,
     const void* bparams, const void* atlas_rows, const void* grad_rows,
     const void* env_rows, const void* vparams, unsigned int seed,
-    int sample_offset, int n_pixels, float inv_n, int width, float inv_w,
-    int total_work, int max_depth, int env_mode, int aux, float z_max,
-    int aov_mask, int use_reflection, int use_refraction, int n_beauty, int n_volumes, const void* next_work, const void* segments,
+    int sample_offset, int pixel_offset, int n_pixels, float inv_n, int width,
+    float inv_w, int total_work, int max_depth, int env_mode, int aux,
+    float z_max, int aov_mask, int use_reflection, int use_refraction,
+    int n_beauty, int n_volumes, const void* next_work, const void* segments,
     void* out_f, void* out_i, void* contrib, void* tgt, void* counts,
     void* next_out, void* seg_out, void* live_count, void* stream) {
   int grid = (p + BLOCK - 1) / BLOCK;
@@ -641,13 +652,15 @@ extern "C" int shade_advance_launch(
   if (err != cudaSuccess) return (int)err;
   if (want_spec) {
     respawn_kernel<true><<<grid, BLOCK, 0, s>>>(
-        p, (const float*)bparams, seed, sample_offset, n_pixels, inv_n, width,
+        p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
+        inv_n, width,
         inv_w, total_work, n_beauty, (const int*)next_work,
         (const long long*)segments, (const int*)counts, (float*)out_f,
         (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count);
   } else {
     respawn_kernel<false><<<grid, BLOCK, 0, s>>>(
-        p, (const float*)bparams, seed, sample_offset, n_pixels, inv_n, width,
+        p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
+        inv_n, width,
         inv_w, total_work, n_beauty, (const int*)next_work,
         (const long long*)segments, (const int*)counts, (float*)out_f,
         (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count);

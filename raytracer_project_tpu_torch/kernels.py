@@ -48,8 +48,8 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _F, _F, _I, _F, _F, _P, _P]),
     "shade_advance_launch": ("shade_advance",
                              [_P, _P, _P, _I, _P, _P, _P, _P, _P, _U, _I, _I,
-                              _F, _I, _F, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                              _I] + [_P] * 11),
+                              _I, _F, _I, _F, _I, _I, _I, _I, _F, _I, _I, _I,
+                              _I, _I] + [_P] * 11),
     "probe_a1_ablate": ("probe_a1_ablate", [_I, _P, _I, _F]
                         + [_P, _I, _P, _I] * 3 + [_I, _P, _P, _P, _P]),
     "probe_onehot": ("probe_onehot", [_I, _I, _I, _P, _P, _P, _I, _I, _P, _P,

@@ -1,10 +1,11 @@
 """Procedural assets (twin of raytracer_project_tpu/models/assets.py).
 
 Deterministic numpy generators for the bump maps, the wood texture and the
-meshes (teapot, cylinder, torus, torus knot, pyramid, bowl). A mesh is read
-from <RAYTRACER_TPU_ASSETS>/models/<name>.obj instead when that file exists
-(the reference's asset root); reading its images waits for the port's
-image reader (ROADMAP queue 1), so the maps stay procedural.
+meshes (teapot, cylinder, torus, torus knot, pyramid, bowl). Real files
+take their places when RAYTRACER_TPU_ASSETS points at an asset root laid
+out like the reference's assets/ directory: bump_maps/*.jpg,
+textures/fine-wood.jpg (read with utils/image_io.load_image, which needs
+PIL) and models/<name>.obj.
 """
 
 from __future__ import annotations
@@ -25,6 +26,16 @@ def _asset_path(*parts) -> str | None:
         return None
     p = os.path.join(root, *parts)
     return p if os.path.exists(p) else None
+
+
+def _try_load_image(*parts) -> np.ndarray | None:
+    """The image at <asset root>/<parts> as f32 [H, W, 3], or None."""
+    p = _asset_path(*parts)
+    if p is None:
+        return None
+    from ..utils import image_io
+
+    return image_io.load_image(p)
 
 
 def _value_noise(size: int, cells: int, seed: int) -> np.ndarray:
@@ -66,6 +77,9 @@ def _gray_to_rgb(g: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def wood_bump_map(size: int = 256) -> np.ndarray:
+    real = _try_load_image("bump_maps", "wood_bump_map.jpg")
+    if real is not None:
+        return real
     yy = np.linspace(0, 1, size, endpoint=False)[:, None]
     n = _fbm(size, seed=11, octaves=3)
     rings = 0.5 + 0.5 * np.sin((yy * 14.0 + n * 2.0) * 2.0 * np.pi)
@@ -74,6 +88,9 @@ def wood_bump_map(size: int = 256) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def scratches_bump_map(size: int = 256) -> np.ndarray:
+    real = _try_load_image("bump_maps", "scratches_bump_map.jpg")
+    if real is not None:
+        return real
     rng = np.random.default_rng(23)
     img = np.full((size, size), 0.5, np.float32)
     for _ in range(180):
@@ -90,11 +107,17 @@ def scratches_bump_map(size: int = 256) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def concrete_bump_map(size: int = 256) -> np.ndarray:
+    real = _try_load_image("bump_maps", "concrete_bump_map.jpg")
+    if real is not None:
+        return real
     return _gray_to_rgb(0.2 + 0.8 * _fbm(size, seed=37, octaves=5, base_cells=8))
 
 
 @functools.lru_cache(maxsize=None)
 def water_bump_map(size: int = 256) -> np.ndarray:
+    real = _try_load_image("bump_maps", "water_bump_map.jpg")
+    if real is not None:
+        return real
     y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
     n = _fbm(size, seed=41, octaves=3)
     ripples = (np.sin((x * 6 + n) * 2 * np.pi) + np.sin((y * 5 - n) * 2 * np.pi)
@@ -104,6 +127,9 @@ def water_bump_map(size: int = 256) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def fine_wood_texture(size: int = 256) -> np.ndarray:
+    real = _try_load_image("textures", "fine-wood.jpg")
+    if real is not None:
+        return real
     rings = wood_bump_map(size)[..., 0]
     dark = np.array([0.26, 0.13, 0.06], np.float32)
     light = np.array([0.55, 0.33, 0.16], np.float32)

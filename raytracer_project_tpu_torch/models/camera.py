@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import rng, vecmath
+from ..core import rng, soa, vecmath
 from ..core.constants import degrees_to_radians
 from ..core.tree import to_device, unflatten
 
@@ -147,3 +147,11 @@ def view_space_normal_color(cam: Camera, n):
     n = vecmath.normalize(n)
     return torch.stack([(vecmath.dot(n, b) + 1.0) * 0.5
                         for b in (cam.u, cam.v, cam.w)], dim=-1)
+
+
+def view_space_normal_color_soa(cam: Camera, n):
+    """SoA twin of view_space_normal_color (reference camera.py:174): n is
+    an (x, y, z) tuple of f32[N]; returns the same kind of tuple."""
+    n = soa.normalize(n)
+    return tuple((n[0] * b[0] + n[1] * b[1] + n[2] * b[2] + 1.0) * 0.5
+                 for b in (cam.u, cam.v, cam.w))

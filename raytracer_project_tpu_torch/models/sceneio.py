@@ -35,9 +35,11 @@ one-key dict: {"translate": [x,y,z]}, {"rotate_x": deg}, {"rotate_y": deg},
 {"rotate_y_radians": rad} (the reference's quirk, rotate_y.hpp:9 against
 scene_management.hpp:116), {"rotate_z": deg}, {"scale": [x,y,z] | s}.
 
-Image textures and "hdr_path" need the port's image reader, which is not
-ported yet: they raise NotImplementedError (ROADMAP queue 1, post chain,
-colour space and image I/O).
+Image texture paths and "hdr_path" resolve against the document's
+directory: an image that does not load becomes the cyan missing-texture
+sentinel (texture.hpp:52-54), and an HDR map that does not load is looked
+up by name under the asset root (environment.load_hdr_by_name), else black
+(environment.hpp:64-68).
 """
 
 from __future__ import annotations
@@ -56,8 +58,6 @@ from .scene import SceneBuilder
 
 _ENV_MODES = {"sun": env_mod.PHYSICAL_SUN, "hdr": env_mod.HDR_MAP,
               "solid": env_mod.SOLID_COLOR}
-_NO_IMAGES = ("image files are not read by the port yet (ROADMAP queue 1, "
-              "post chain, colour space and image I/O)")
 
 
 def _compose_transform(spec: list[dict] | None) -> np.ndarray | None:
@@ -87,7 +87,9 @@ def _compose_transform(spec: list[dict] | None) -> np.ndarray | None:
     return geometry.compose(*reversed(mats))
 
 
-def _load_textures(b: SceneBuilder, spec: dict) -> dict[str, int]:
+def _load_textures(b: SceneBuilder, spec: dict, base_dir: str) -> dict[str, int]:
+    from ..utils import image_io
+
     ids: dict[str, int] = {}
     for name, t in (spec or {}).items():
         kind = t.get("type", "image")
@@ -96,7 +98,12 @@ def _load_textures(b: SceneBuilder, spec: dict) -> dict[str, int]:
                 float(t.get("scale", 1.0)),
                 t.get("even", (0, 0, 0)), t.get("odd", (1, 1, 1)))
         elif kind == "image":
-            raise NotImplementedError(f"texture {name!r}: {_NO_IMAGES}")
+            path = os.path.join(base_dir, t["path"])
+            img = image_io.load_image(path)
+            if img is None and path.lower().endswith(".hdr"):
+                img = image_io.load_hdr(path)
+            ids[name] = (b.textures.add_missing() if img is None
+                         else b.textures.add_image(img))
         else:
             raise ValueError(f"unknown texture type: {kind}")
     return ids
@@ -162,11 +169,16 @@ def _load_objects(b: SceneBuilder, spec: list, base_dir: str) -> None:
                              target_scale=float(o.get("scale", 1.0)))
 
 
-def _load_environment(spec: dict | None):
+def _load_environment(spec: dict | None, base_dir: str):
     spec = dict(spec or {})
     mode = _ENV_MODES[spec.pop("mode", "sun")]
-    if spec.pop("hdr_path", None) is not None:
-        raise NotImplementedError(f"hdr_path: {_NO_IMAGES}")
+    hdr_path = spec.pop("hdr_path", None)
+    if hdr_path is not None:
+        from ..utils import image_io
+
+        img = image_io.load_hdr(os.path.join(base_dir, hdr_path))
+        spec["hdr_image"] = (env_mod.load_hdr_by_name(hdr_path) if img is None
+                             else img)
     astro = spec.pop("astronomical", None)
     if astro is not None:
         lat = astro.get("latitude", 50.0)
@@ -191,12 +203,12 @@ def load_scene_file(path: str, with_bvh: bool = True):
 
 def load_scene_dict(doc: dict, base_dir: str = ".", with_bvh: bool = True):
     """(scene, camera, environment, config) of a scene document; relative
-    mesh paths resolve against base_dir."""
+    mesh, image and HDR paths resolve against base_dir."""
     b = SceneBuilder()
-    tex = _load_textures(b, doc.get("textures"))
+    tex = _load_textures(b, doc.get("textures"), base_dir)
     _load_materials(b, doc.get("materials"), tex)
     _load_objects(b, doc.get("objects"), base_dir)
-    env, mode = _load_environment(doc.get("environment"))
+    env, mode = _load_environment(doc.get("environment"), base_dir)
     scene = b.build(with_bvh=with_bvh)
 
     render_kwargs: dict[str, Any] = dict(doc.get("render", {}))

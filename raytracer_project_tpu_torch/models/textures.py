@@ -2,7 +2,8 @@
 raytracer_project_tpu/models/textures.py, builder subset).
 
 The fused pool samples inside its kernels (ops/fused_step.py); the
-chunked integrator calls `sample` and `sample_bump_deltas` here. The module
+chunked integrator calls `sample` and `sample_bump_deltas` here, the
+unfused pool `sample_soa` and `sample_bump_deltas`. The module
 also holds the packed table and its host-side builder. Semantics follow
 texture.hpp:50-78 and :118-126 (nearest-neighbour, u wraps, v clamps,
 failed loads are cyan, the checker takes the parity of floored cells).
@@ -83,6 +84,26 @@ def sample(bank: TextureBank, tex_id, u, v, p, default):
     cyan = torch.tensor(_CYAN, dtype=color.dtype, device=color.device)
     color = torch.where((kind == KIND_MISSING)[:, None], cyan, color)
     return torch.where((tex_id < 0)[:, None], default, color)
+
+
+def sample_soa(bank: TextureBank, tex_id, u, v, p, default):
+    """SoA twin of `sample` (reference sample_soa, textures.py:107): p and
+    default are (x, y, z) tuples of f32[N]; returns an (r, g, b) tuple."""
+    tid = torch.clamp(tex_id, min=0).to(torch.int64)
+    kind = bank.kind[tid]
+    i, j = _texel_ij(bank, tid, u, v)
+    image = bank.data[tid, j, i]
+    inv_scale = bank.checker_inv_scale[tid]
+    cells = sum(torch.floor(inv_scale * c).to(torch.int64) for c in p)
+    is_even = cells % 2 == 0
+    even, odd = bank.checker_even[tid], bank.checker_odd[tid]
+    out = []
+    for c in range(3):
+        col = torch.where(kind == KIND_IMAGE, image[:, c],
+                          torch.where(is_even, even[:, c], odd[:, c]))
+        col = torch.where(kind == KIND_MISSING, _CYAN[c], col)
+        out.append(torch.where(tex_id < 0, default[c], col))
+    return tuple(out)
 
 
 def sample_bump_deltas(bank: TextureBank, tex_id, u, v, delta: float):

@@ -1,11 +1,12 @@
 """ctypes bindings for the port's copy of the host C++ runtime
 (csrc/zenith_native.cpp; twin of raytracer_project_tpu/native).
 
-The library does the host-side work of scene building: the binned-SAH BVH
-build and OBJ parsing. It is compiled with g++ at first use into
+The library does the host-side work of scene building and export: the
+binned-SAH BVH build, OBJ parsing and the PNG writer. It is compiled with g++ at first use into
 <repo>/build/native/ (one build per source change; concurrent processes
 take a file lock) and loaded with ctypes. When it cannot be built, callers
-take their pure-Python builders: ops/bvh.py and models/obj.py. Set
+take their pure-Python builders: ops/bvh.py, models/obj.py and
+utils/image_io.py. Set
 RAYTRACER_TPU_NO_NATIVE=1 to force them.
 """
 
@@ -83,6 +84,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.zn_obj_parse.argtypes = [ctypes.c_char_p]
     lib.zn_mesh_free.restype = None
     lib.zn_mesh_free.argtypes = [ctypes.POINTER(_ZnMesh)]
+    lib.zn_png_write.restype = ctypes.c_int32
+    lib.zn_png_write.argtypes = [ctypes.c_char_p, ctypes.c_int32,
+                                 ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8)]
     lib.zn_version.restype = ctypes.c_char_p
     lib.zn_version.argtypes = []
     return lib
@@ -187,3 +191,16 @@ def parse_obj(path: str) -> dict | None:
         return out
     finally:
         lib.zn_mesh_free(res)
+
+
+def write_png(path: str, rgb_u8: np.ndarray) -> bool:
+    """Write uint8 [H, W, 3] as an RGB PNG with the native writer; False
+    if the library is absent or the write failed (the caller falls back)."""
+    lib = _load()
+    if lib is None:
+        return False
+    arr = np.ascontiguousarray(rgb_u8, np.uint8)
+    h, w = arr.shape[:2]
+    rc = lib.zn_png_write(os.fsencode(path), w, h,
+                          arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return rc == 0

@@ -157,9 +157,9 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
     if vol is not None and vol.count:
         if vol.textured is not None:
             raise NotImplementedError(
-                "textured fog on the fused pool needs the unfused pool "
-                "(ROADMAP queue 1, the unfused pool); render it with "
-                "wavefront=False")
+                "the fused pool samples solid-albedo fog only; "
+                "wavefront.render_pool routes textured fog to the unfused "
+                "pool (wavefront.render_unfused)")
         col = lambda x: x.to(torch.float32).reshape(vol.count, -1)
         vparams = torch.cat([
             col(vol.kind), col(vol.center), col(vol.radius), col(vol.box_min),
@@ -183,7 +183,7 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
 
 def fused_supported(scene, config, env=None, check_spp: bool = True) -> bool:
     """Whether the fused step covers this render (else sample-chunk it or,
-    past the limits below, nothing in the port does yet). Fog is sampled in
+    past the limits below, take the unfused pool). Fog is sampled in
     K3 with the volume's albedo resolved ahead, which needs solid
     (untextured) phase materials, the only kind the builder makes by
     default; `build_tables` raises on textured fog."""
@@ -204,11 +204,14 @@ def fused_supported(scene, config, env=None, check_spp: bool = True) -> bool:
     )
 
 
-def fused_spp_chunk(scene, config, env=None) -> int:
-    """Largest per-call spp under the work-id cap (0 = unsupported)."""
+def fused_spp_chunk(scene, config, env=None,
+                    n_pixels_local: int | None = None) -> int:
+    """Largest per-call spp under the work-id cap (0 = unsupported). The
+    cap applies to the pixel window of n_pixels_local pixels when given."""
     if not fused_supported(scene, config, env, check_spp=False):
         return 0
-    return max(0, (_TOTAL_WORK_CAP - 1) // (2 * config.n_pixels))
+    n = n_pixels_local if n_pixels_local is not None else config.n_pixels
+    return max(0, (_TOTAL_WORK_CAP - 1) // (2 * n))
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +395,7 @@ class StepParams(NamedTuple):
 
     seed: int            # u32
     sample_offset: int
-    n_pixels: int
+    n_pixels: int        # the pixel window's size (the frame's by default)
     width: int
     total_work: int
     max_depth: int
@@ -404,6 +407,7 @@ class StepParams(NamedTuple):
     use_refraction: bool = False
     n_beauty: int = 0            # work ids from here on are spec lanes
     n_volumes: int = 0           # rows of FusedTables.vparams sampled
+    pixel_offset: int = 0        # global id of the window's first pixel
 
     @property
     def want_spec(self) -> bool:
@@ -533,7 +537,9 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
     (state_rows); next_work i32[1]; segments i64[1]. Returns (state_f,
     state_i, contrib f32[C, P], tgt i32[T, P], next_work i32[1], segments
     i64[1], live_count i32[1]); output_rows gives C and T, acc_channels
-    their meaning. A target of n_pixels is the accumulator's dummy slot."""
+    their meaning. Lane pixel ids are global; a target is the lane's slot
+    in the window, li - pixel_offset, or n_pixels, the accumulator's dummy
+    slot."""
     bp = bparams
     hit = rec[_RO_HIT] > 0.5
     t_hit = rec[_RO_T]
@@ -733,17 +739,18 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
         active = active & ~(spec0 & ~(to_refl | to_refr))
 
     n = sp.n_pixels
+    slot = li - sp.pixel_offset
     contrib, tgts = [], []
     done = live & ~active
     done_beauty = done & ~is_spec
-    tgts.append(torch.where(done_beauty, li, n))
+    tgts.append(torch.where(done_beauty, slot, n))
     contrib += [torch.where(done_beauty, rad[k], 0.0) for k in range(3)]
 
     # AOVs of the camera segment: bounce-0 beauty lanes whose absolute
     # sample id is below the aux budget (camera.hpp:463-487).
     if sp.aovs:
         is_aux = live & at0 & (samp < sp.aux) & ~is_spec
-        tgts.append(torch.where(is_aux, li, n))
+        tgts.append(torch.where(is_aux, slot, n))
         if "albedo" in sp.aovs:
             for k in range(3):
                 alb = torch.where(is_diel, 1.0, tex3[k])
@@ -769,7 +776,7 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
         spec_c = tuple(attn0[k] * rad[k] * fscale for k in range(3))
         for route in (to_refl, to_refr):
             dr = done & route
-            tgts.append(torch.where(dr, li, n))
+            tgts.append(torch.where(dr, slot, n))
             contrib += [torch.where(dr, spec_c[k], 0.0) for k in range(3)]
 
     # Respawn: lane -> work id = next_work + inclusive prefix count of
@@ -788,7 +795,7 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
     sli = wf - sr * n
     sr = torch.where(sli < 0.0, sr - 1.0, torch.where(sli >= n, sr + 1.0, sr))
     sli = wf - sr * n
-    new_li = sli.to(torch.int32)
+    new_li = sli.to(torch.int32) + sp.pixel_offset
     new_samp = sp.sample_offset + sr.to(torch.int32)
     so, sd = _raygen(bp, sp.seed, new_li, new_samp, sp.width)
 
@@ -858,7 +865,7 @@ def shade_advance(tables: FusedTables, rec, state_f, state_i, next_work,
     kernels.launch(
         "shade_advance_launch", rec, state_f, state_i, p, bparams,
         tables.atlas_rows, tables.grad_rows, tables.env_rows, tables.vparams,
-        sp.seed, sp.sample_offset, sp.n_pixels,
+        sp.seed, sp.sample_offset, sp.pixel_offset, sp.n_pixels,
         float(np.float32(1.0 / sp.n_pixels)), sp.width,
         float(np.float32(1.0 / sp.width)), sp.total_work, sp.max_depth,
         sp.env_mode, sp.aux, float(sp.z_max), aov_mask, int(sp.use_reflection), int(sp.use_refraction), sp.n_beauty,
@@ -903,19 +910,28 @@ def _host_copy(x: torch.Tensor):
 
 
 def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
-                      sample_offset=0, with_stats: bool = False):
-    """Per-pixel sums (integrator.SampleBuffers, each f32[n_pixels, 3]) of
+                      sample_offset=0, with_stats: bool = False,
+                      pixel_offset: int = 0, n_pixels_local: int | None = None):
+    """Per-pixel sums (integrator.SampleBuffers, each f32[n, 3]) of
     `config.samples_per_pixel` samples from `sample_offset` on, through the
     fused pool on the scene's device: beauty, the AOVs and the split passes
     that `config` enables (zeros for the others). The AOVs sum the camera
     segments of the samples whose absolute id is below `aux`, the whole
     render's AOV budget, so that sample chunks add up to one call.
+
+    pixel_offset / n_pixels_local render the pixel window [pixel_offset,
+    pixel_offset + n_pixels_local) of the frame (n = n_pixels_local; by
+    default the whole frame, n = config.n_pixels): lanes keep global pixel
+    ids, so each pixel's samples are those of the full-frame render.
+    A window past the frame's end traces phantom pixels, which the caller
+    drops (parallel/render.py).
+
     with_stats also returns {"segments", "steps"}: path segments traced
     (int64 on the device, exact) and steps taken with live lanes."""
     from .integrator import SampleBuffers
 
     dev = scene.spheres.center.device
-    n = config.n_pixels
+    n = n_pixels_local if n_pixels_local is not None else config.n_pixels
     spp = config.samples_per_pixel
     aovs = tuple(name for name, on in zip(AOVS, (
         config.use_albedo, config.use_normal, config.use_z_depth)) if on)
@@ -933,7 +949,7 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
                     aux=int(aux), z_max=float(config.z_depth_max_dist),
                     aovs=aovs, use_reflection=config.use_reflection,
                     use_refraction=config.use_refraction, n_beauty=n_beauty,
-                    n_volumes=n_volumes)
+                    n_volumes=n_volumes, pixel_offset=int(pixel_offset))
 
     # Initial fill: the same (pixel, sample) decode as the respawn.
     w0 = torch.arange(p, dtype=torch.int64, device=dev)
@@ -941,7 +957,7 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
     spec0 = wc >= n_beauty
     wc = torch.where(spec0, wc - n_beauty, wc)
     samp_rel = wc // n
-    li0 = (wc - samp_rel * n).to(torch.int32)
+    li0 = (wc - samp_rel * n + pixel_offset).to(torch.int32)
     samp0 = (sample_offset + samp_rel).to(torch.int32)
     lr0 = rng.LaneRng(sp.seed, rng.u32(li0), rng.u32(samp0), 0)
     o0, d0 = camera_mod.generate_rays_soa(cam.to(dev), lr0, li0, config.width)

@@ -3,17 +3,18 @@ raytracer_project_tpu/ops/integrator.py).
 
 `render` runs on the card unless the caller asks for another device, by
 one of two engines, each with all six buffers and fog:
-  * wavefront=True (the default): the fused pooled wavefront
-    (ops/wavefront.py -> ops/fused_step.py); fog there must have solid
-    (untextured) phase materials;
+  * wavefront=True (the default): the pooled wavefront (ops/wavefront.py):
+    the fused pool (ops/fused_step.py), or the unfused pool for textured
+    fog, explicit pixel ids and RAYTRACER_TPU_NO_FUSED;
   * wavefront=False: the chunked integrator below. Each
     chunk is one wavefront of (pixel, sample) lanes that follows the
     reference's per-sample structure (camera.hpp:454-527): one first hit
     shared by beauty, the AOVs and the split passes, then a bounce loop
     (camera.hpp:928-986) that intersects every lane on every bounce
     through intersect.intersect (K4 on the card) until all lanes are dead.
-The differentiable mode and textured fog on the fused pool raise
-NotImplementedError with the ROADMAP item that brings them.
+`accumulate_samples` renders a pixel window or a list of pixels
+(parallel/render.py shards frames that way). The differentiable mode
+raises NotImplementedError with the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -54,8 +55,13 @@ class RenderConfig:
     samples_per_batch: int | None = None
     differentiable: bool = False
     wavefront: bool = True
-    # Pool size (None = min(total work, 131072), rounded up to 4096).
+    # Pool size (None: the fused pool takes min(total work, 131072) rounded
+    # up to 4096, the unfused pool min(total work, 262144)).
     pool_lanes: int | None = None
+    # Re-sort the unfused pool's lanes by direction octant and origin cell
+    # after every step (wavefront._coherence_order); off by default, as in
+    # the reference (integrator.py:89-94). The fused pool ignores it.
+    sort_lanes: bool = False
 
     @property
     def aux_samples(self) -> int:
@@ -229,14 +235,14 @@ _TARGET_LANES = 400_000
 
 
 def _accumulate_chunked(scene, cam, env, seed: int, config: RenderConfig,
-                        sample_offset: int, stats: dict) -> SampleBuffers:
-    dev = scene.spheres.center.device
-    n = config.n_pixels
+                        pixel_ids, sample_offset: int,
+                        stats: dict) -> SampleBuffers:
+    n = pixel_ids.shape[0]
+    dev = pixel_ids.device
     spp = config.samples_per_pixel
     aux = min(config.aux_samples, spp)
     batch = config.samples_per_batch or max(1, _TARGET_LANES // max(n, 1))
     batch = min(batch, spp)
-    pixel_ids = torch.arange(n, dtype=torch.int64, device=dev)
     lane_pix = pixel_ids.repeat(batch)
     lane_rel = torch.arange(batch, dtype=torch.int64,
                             device=dev).repeat_interleave(n)
@@ -260,21 +266,47 @@ def _accumulate_chunked(scene, cam, env, seed: int, config: RenderConfig,
 
 
 def accumulate_samples(scene, cam, env, seed: int, config: RenderConfig,
-                       sample_offset: int = 0, with_stats: bool = False):
+                       pixel_ids=None, sample_offset: int = 0,
+                       with_stats: bool = False, pixel_offset: int = 0,
+                       n_pixels_local: int | None = None):
     """Sums (not averages) of `samples_per_pixel` samples per pixel from
-    `sample_offset` on, on the scene's device, so progressive renders keep
-    accumulating. with_stats also returns {"segments", "steps"}: path
-    segments traced, and pool steps (fused) or chunks (chunked)."""
-    _check_supported(config)
-    if not config.wavefront:
-        stats = {"segments": 0, "steps": 0}
-        out = _accumulate_chunked(scene, cam, env, seed, config,
-                                  sample_offset, stats)
-        return (out, stats) if with_stats else out
-    from . import wavefront
+    `sample_offset` on, on the scene's device, so progressive renders and
+    sharded renders keep accumulating (reference accumulate_samples,
+    integrator.py:340-390). The camera and environment follow the scene to
+    its device.
 
-    return wavefront.render_pool(scene, cam, env, seed, config, sample_offset,
-                                 with_stats=with_stats)
+    pixel_ids None is the full frame or, with n_pixels_local, the pixel
+    window [pixel_offset, pixel_offset + n_pixels_local) clamped to the
+    frame (trailing slots re-render the last pixel); otherwise the global
+    pixel ids [n] to render. Lane streams are (pixel, sample)-keyed, so a
+    pixel's sum is the same whichever way the frame is split.
+
+    with_stats also returns {"segments", "steps"}: path segments traced,
+    and pool steps (with "engine": "fused" | "pool") or chunks (chunked)."""
+    _check_supported(config)
+    dev = scene.spheres.center.device
+    cam, env = cam.to(dev), env.to(dev)
+    if config.wavefront:
+        from . import wavefront
+
+        return wavefront.render_pool(
+            scene, cam, env, seed, config, pixel_ids, sample_offset,
+            with_stats=with_stats, pixel_offset=pixel_offset,
+            n_pixels_local=n_pixels_local)
+    if pixel_ids is not None and n_pixels_local is not None:
+        raise ValueError("a pixel window takes pixel_ids=None")
+    if pixel_ids is None:
+        if n_pixels_local is None:
+            pixel_ids = torch.arange(config.n_pixels, device=dev)
+        else:
+            pixel_ids = torch.clamp(
+                pixel_offset + torch.arange(n_pixels_local, device=dev),
+                max=config.n_pixels - 1)
+    pixel_ids = torch.as_tensor(pixel_ids).to(dev, torch.int64)
+    stats = {"segments": 0, "steps": 0}
+    out = _accumulate_chunked(scene, cam, env, seed, config, pixel_ids,
+                              sample_offset, stats)
+    return (out, stats) if with_stats else out
 
 
 def finalize_buffers(acc: SampleBuffers, config: RenderConfig,

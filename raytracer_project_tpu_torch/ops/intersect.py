@@ -446,18 +446,32 @@ def _packed_all(scene):
     return torch.cat(parts, dim=0)
 
 
-def _sphere_record_soa(g, o, d, t):
+def _hit_point(t, d, o, compiled: bool):
+    """t d + o; with `compiled`, one fused multiply-add per component, the
+    rounding of the reference's compiled (jitted) SoA record."""
+    if compiled:
+        return tuple(vecmath.fma(t, d[k], o[k]) for k in range(3))
+    return soa.axpy(t, d, o)
+
+
+def _sphere_record_soa(g, o, d, t, compiled: bool = False):
     """Sphere shading data (sphere.hpp:40-79); g = per-column [N] tuple.
-    The uv arcs are the polynomial ones the decode kernel uses."""
+    The uv arcs are the polynomial ones the decode kernel uses; with
+    `compiled` (the unfused pool's make_record_soa) the exact arcs and the
+    fused hit point of the reference's compiled record."""
     center = (g[0], g[1], g[2])
     radius = torch.clamp(torch.abs(g[3]), min=1e-6)
-    p = soa.axpy(t, d, o)
+    p = _hit_point(t, d, o, compiled)
     outward = soa.scale(soa.sub(p, center), 1.0 / radius)
     front = soa.dot(d, outward) < 0.0
     normal = soa.where(front, outward, soa.neg(outward))
 
-    theta = vecmath.acos_poly(-outward[1])
-    phi = vecmath.atan2_poly(-outward[2], outward[0]) + PI
+    if compiled:
+        theta = vecmath.safe_arccos(-outward[1])
+        phi = torch.atan2(-outward[2], outward[0]) + PI
+    else:
+        theta = vecmath.acos_poly(-outward[1])
+        phi = vecmath.atan2_poly(-outward[2], outward[0]) + PI
     u = phi / phi.new_tensor(2.0 * PI)
     v = theta / theta.new_tensor(PI)
 
@@ -471,9 +485,9 @@ def _sphere_record_soa(g, o, d, t):
     return p, normal, tangent, bitangent, front, u, v, g[4]
 
 
-def _triangle_record_soa(g, o, d, t):
+def _triangle_record_soa(g, o, d, t, compiled: bool = False):
     """Triangle shading data: barycentric-smooth normal, interpolated uv,
-    face tangent (triangle.hpp:56-79)."""
+    face tangent (triangle.hpp:56-79); `compiled` as for the sphere."""
     v0 = (g[0], g[1], g[2])
     e1 = (g[3], g[4], g[5])
     e2 = (g[6], g[7], g[8])
@@ -481,7 +495,7 @@ def _triangle_record_soa(g, o, d, t):
     n1 = (g[12], g[13], g[14])
     n2 = (g[15], g[16], g[17])
     tangent = (g[24], g[25], g[26])
-    p = soa.axpy(t, d, o)
+    p = _hit_point(t, d, o, compiled)
 
     geo_n = soa.cross(e1, e2)
     area_sq = torch.clamp(soa.length_squared(geo_n), min=1e-24)
@@ -503,10 +517,10 @@ def _triangle_record_soa(g, o, d, t):
     return p, normal, tangent, bitangent, front, uu, vv, g[27]
 
 
-def _box_record_soa(g, o, d, t):
+def _box_record_soa(g, o, d, t, compiled: bool = False):
     """Box shading data: face normal, uv and tangent from the local hit
-    point (cube.hpp:100-142)."""
-    p = soa.axpy(t, d, o)
+    point (cube.hpp:100-142); `compiled` as for the sphere."""
+    p = _hit_point(t, d, o, compiled)
     l = tuple(g[3 * k] * p[0] + g[3 * k + 1] * p[1] + g[3 * k + 2] * p[2]
               + g[9 + k] for k in range(3))
     ax, ay, az = torch.abs(l[0]), torch.abs(l[1]), torch.abs(l[2])
@@ -712,10 +726,16 @@ def hit_tables(scene):
     return closest_hit.scan_tables(scene)
 
 
-def intersect(scene, o, d, tmin: float, tables) -> Hit:
+def intersect(scene, o, d, tmin: float, tables, sort_rays: bool = False) -> Hit:
     """Closest hits of the rays o, d f32[N, 3] beyond tmin, by the route
     `intersect_dispatch` gives for their device. tables: the scene's
-    `hit_tables`, built once per scene by the caller."""
+    `hit_tables`, built once per scene by the caller.
+
+    sort_rays (the "k4" route only; the others take the rays as they come):
+    group the rays into coherent kernel blocks by (nearest 512-wide chunk,
+    direction octant) before K4 and put the results back in ray order, the
+    reference's option of intersect_brute_pallas
+    (pallas_intersect.py:524-562). Scheduling only: the same hit per ray."""
     path = intersect_dispatch(scene, o.device)
     if path == "bvh":
         from . import traverse
@@ -725,6 +745,139 @@ def intersect(scene, o, d, tmin: float, tables) -> Hit:
         return intersect_brute(scene, o, d, tmin)
     from . import closest_hit
 
+    dest = None
+    if sort_rays:
+        order, dest = sort_order(scene, o, d)
+        o, d = o[order], d[order]
     t, idx, typ = closest_hit.closest_hit_feats(
         ray_feature_rows(o, d).contiguous(), tmin, tables)
+    if dest is not None:
+        # Ray i's result sits at slot dest[i].
+        t, idx, typ = t[dest], idx[dest], typ[dest]
     return Hit(t=t, prim_type=typ, prim_idx=idx, hit=t < T_MAX)
+
+
+# --- sort_rays: the coherence permutation of the "k4" route -------------------
+
+def _sort_key(o, d, bounds):
+    """(major, minor) of each ray (reference _sort_key,
+    pallas_intersect.py:432): major = the index of the nearest chunk AABB
+    the ray overlaps (n_chunks when it overlaps none), minor = its
+    direction octant."""
+    c = bounds.shape[0]
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-30, 1e-30, d)
+    tn = torch.full((o.shape[0], c), -float("inf"), device=o.device)
+    tf = torch.full((o.shape[0], c), float("inf"), device=o.device)
+    for ax in range(3):
+        t0 = (bounds[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        t1 = (bounds[None, :, 3 + ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        tn = torch.maximum(tn, torch.minimum(t0, t1))
+        tf = torch.minimum(tf, torch.maximum(t0, t1))
+    ok = (tn <= tf) & (tf > 0.0) & (bounds[None, :, 0] <= bounds[None, :, 3])
+    first = torch.argmin(torch.where(ok, torch.clamp(tn, min=0.0), float("inf")),
+                         dim=1)
+    first = torch.where(ok.any(dim=1), first, c)
+    octant = (((d[:, 0] > 0).long() << 2) | ((d[:, 1] > 0).long() << 1)
+              | (d[:, 2] > 0).long())
+    return first, octant
+
+
+def _radix_order(minor, major):
+    """(order, dest): the permutation that groups lanes by (major, octant
+    minor) keeping lane order within a group, and its inverse
+    (order[dest[i]] = i).
+    The reference builds it with two stable counting-sort passes
+    (_radix_order, pallas_intersect.py:484); one stable sort of the joint
+    key gives the same permutation."""
+    order = torch.sort(major * 8 + minor, stable=True).indices
+    return order, _invert_perm(order)
+
+
+def _invert_perm(order):
+    dest = torch.empty_like(order)
+    dest[order] = torch.arange(order.shape[0], device=order.device)
+    return dest
+
+
+def sort_order(scene, o, d):
+    """(order, dest) of sort_rays for rays o, d f32[N, 3]: the key is taken
+    on the reference's 512-wide chunk AABBs (_coarsen_bounds), so the
+    permutation is the reference's bit for bit."""
+    from . import closest_hit
+
+    mm = scene.mm
+    bounds = torch.cat([closest_hit.coarsen_bounds(b) for b in
+                        (mm.sphere_bounds, mm.tri_bounds, mm.box_bounds)])
+    major, minor = _sort_key(o, d, bounds)
+    return _radix_order(minor, major)
+
+
+# --- the unfused pool's side (SoA: vectors as (x, y, z) tuples of [N]) --------
+
+class HitRecordSoa(NamedTuple):
+    """HitRecord with its vectors as (x, y, z) tuples of f32[N]."""
+
+    t: torch.Tensor
+    p: tuple
+    normal: tuple
+    tangent: tuple
+    bitangent: tuple
+    front_face: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    mat: torch.Tensor         # i64[N]
+    hit: torch.Tensor
+
+
+def make_record_soa(scene, o, d, hit: Hit, packed=None) -> HitRecordSoa:
+    """SoA twin of make_record (reference make_record_soa,
+    intersect.py:1244): o, d are component tuples; the decoders take the
+    compiled form (exact arcs, fused hit points). packed: the scene's `_packed_all` rows, built once per
+    render by the caller (else here)."""
+    if packed is None:
+        packed = _packed_all(scene)
+    t_safe = torch.where(hit.hit, hit.t, 1.0)
+    ns, nt = scene.spheres.count, scene.triangles.count
+    base = torch.where(hit.prim_type == PRIM_TRIANGLE, ns,
+                       torch.where(hit.prim_type == PRIM_BOX, ns + nt, 0))
+    row = torch.clamp(hit.prim_idx.long() + base, 0, packed.shape[0] - 1)
+    g = packed[row]
+    is_sph = hit.prim_type == PRIM_SPHERE
+    is_tri = hit.prim_type == PRIM_TRIANGLE
+    is_box = hit.prim_type == PRIM_BOX
+
+    def sel_cols(mask, default, ncols):
+        return tuple(torch.where(mask, g[:, k], float(default[k]))
+                     for k in range(ncols)) + (None,) * (_PACK_COLS - ncols)
+
+    def sel(mask, a, b):
+        return soa.where(mask, b, a) if isinstance(a, tuple) else torch.where(mask, b, a)
+
+    sp = _sphere_record_soa(sel_cols(is_sph, _SPHERE_DEFAULT_ROW, 5), o, d,
+                            t_safe, compiled=True)
+    tp = _triangle_record_soa(sel_cols(is_tri, _TRI_DEFAULT_ROW, 28), o, d,
+                              t_safe, compiled=True)
+    parts = tuple(sel(is_tri, a, b) for a, b in zip(sp, tp))
+    if scene.boxes is not None:
+        bp = _box_record_soa(sel_cols(is_box, _BOX_DEFAULT_ROW, 13), o, d,
+                             t_safe, compiled=True)
+        parts = tuple(sel(is_box, a, b) for a, b in zip(parts, bp))
+    p, normal, tangent, bitangent, front, u, v, mat = parts
+    return HitRecordSoa(t=hit.t, p=p, normal=normal, tangent=tangent,
+                        bitangent=bitangent, front_face=front, u=u, v=v,
+                        mat=mat.long(), hit=hit.hit)
+
+
+def intersect_soa(scene, o, d, tmin: float, tables) -> Hit:
+    """SoA twin of intersect (reference intersect_soa, intersect.py:1315):
+    on CUDA the "k4" route runs K1 (closest_hit.closest_hit) on the rays' od
+    rows, the reference's accelerator route intersect_brute_pallas_od;
+    elsewhere the rays take `intersect`'s route."""
+    if (o[0].device.type == "cuda"
+            and intersect_dispatch(scene, o[0].device) == "k4"):
+        from . import closest_hit
+
+        t, idx, typ = closest_hit.closest_hit(
+            torch.stack([*o, *d]).contiguous(), tmin, tables)
+        return Hit(t=t, prim_type=typ, prim_idx=idx, hit=t < T_MAX)
+    return intersect(scene, torch.stack(o, 1), torch.stack(d, 1), tmin, tables)

@@ -543,3 +543,127 @@ def test_closest_hit_matches_plain_on_funnel_bounce_rays(cuda):
     rel = ((tk - tp).abs() / tp.abs().clamp(min=1e-3))
     assert float((rel[same] > 5e-3).float().mean()) <= 0.03
     assert float(rel[held].max()) <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True])
+def test_shade_advance_window_matches_plain(inputs, spec):
+    """K3 on a pixel window (pixel_offset != 0): lanes carry global pixel
+    ids in the window, the targets are their slots, respawned lanes stay in
+    the window; the kernel equals its plain version."""
+    scene, env, od = inputs
+    dev = od.device
+    tables = fs.build_tables(scene, env.to(dev), tenv.PHYSICAL_SUN)
+    rec = fs.decode(tables, od, *k1.closest_hit(od, 1e-3, tables.scan),
+                    fs._aparams(env, dev))
+    n_local, poff = 50_000, 123_457
+    r = np.random.default_rng(2)
+    rows_i = [(r.random(P) < 0.85), r.integers(0, 13, P), r.integers(0, 4, P),
+              poff + r.integers(0, n_local, P)]
+    nf = 12
+    if spec:
+        rows_i += [r.random(P) < 0.5, r.random(P) < 0.3, r.random(P) < 0.3]
+        nf = 15
+    state_f = torch.cat([od, torch.as_tensor(r.uniform(
+        0, 1.5, (nf - 6, P)).astype(np.float32)).to(dev)]).contiguous()
+    state_i = torch.as_tensor(np.stack(rows_i).astype(np.int32)).to(dev)
+    cam = tcam.make_camera(image_width=800, image_height=450, **CAM_KW)
+    n_beauty = n_local * 4
+    sp = fs.StepParams(seed=rng.seed_from_int(7), sample_offset=2,
+                       n_pixels=n_local, width=800,
+                       total_work=n_beauty * (2 if spec else 1), max_depth=10,
+                       env_mode=tenv.PHYSICAL_SUN, aovs=fs.AOVS if spec else (),
+                       aux=3, use_reflection=spec, use_refraction=spec,
+                       n_beauty=n_beauty, pixel_offset=poff)
+    args = (rec, state_f, state_i,
+            torch.tensor([n_beauty - 9000], dtype=torch.int32, device=dev),
+            torch.tensor([11], dtype=torch.int64, device=dev),
+            fs._bparams(cam, env, dev), sp)
+    out = fs.shade_advance(tables, *args)
+    ref = fs.shade_advance_plain(tables, *args)
+    for k, (a, b) in enumerate(zip(out, ref)):
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(a, b), k
+    tgt = out[3]
+    assert bool(((tgt >= 0) & (tgt <= n_local)).all())
+    assert bool((tgt < n_local).any())
+    li = out[1][3]
+    assert bool(((li >= poff) & (li < poff + n_local)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["fused", "pool", "chunked"])
+def test_windows_sum_to_the_frame_on_card(cuda, engine, monkeypatch):
+    """Three windows of one card (a frame of 2,501 pixels, two padding
+    slots) sum to the one-window render: segments exactly those of the
+    frame and its padding, sums within rtol/atol 3e-4 (the card's
+    scatter-adds sum in no fixed order)."""
+    from raytracer_project_tpu_torch.parallel import render as prender
+
+    if engine == "pool":
+        monkeypatch.setenv("RAYTRACER_TPU_NO_FUSED", "1")
+    scene = presets.showcase_scene().to(cuda)
+    cam = tcam.make_camera(image_width=61, image_height=41, **CAM_KW)
+    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
+                                sun_intensity=6.0)
+    cfg = integrator.RenderConfig(width=61, height=41, samples_per_pixel=4,
+                                  use_reflection=True,
+                                  wavefront=engine != "chunked")
+    n = cfg.n_pixels
+    full, fst = integrator.accumulate_samples(scene, cam, env, 5, cfg,
+                                              with_stats=True)
+    ids = prender._padded_pixel_ids(n, 3)
+    acc, st = prender.sharded_accumulate(scene, cam, env, 5, cfg, ids, 0,
+                                         mesh=prender.make_mesh(3, cuda),
+                                         with_stats=True)
+    pad = ids.shape[0] - n
+    if engine == "fused":
+        phantom = integrator.accumulate_samples(
+            scene, cam, env, 5, cfg, pixel_offset=n, n_pixels_local=pad,
+            with_stats=True)[1]["segments"]
+    else:
+        phantom = integrator.accumulate_samples(
+            scene, cam, env, 5, cfg, torch.full((pad,), n - 1, device=cuda),
+            with_stats=True)[1]["segments"]
+    assert st["segments"] == fst["segments"] + phantom
+    for name, a, b in zip(acc._fields, acc, full):
+        torch.testing.assert_close(a[:n], b, rtol=3e-4, atol=3e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_unfused_pool_smoke_golden_on_card(cuda, monkeypatch):
+    """The reference's pool-render stage on the card: 128x72 @ 4 spp
+    through the unfused pool (K1 only) against smoke_pool_128x72.npz under
+    the cross-backend budgets 0.06 / 0.20."""
+    monkeypatch.setenv("RAYTRACER_TPU_NO_FUSED", "1")
+    scene = presets.showcase_scene()
+    cam = tcam.make_camera(image_width=128, image_height=72,
+                           defocus_angle=0.0, focus_dist=10.0, **CAM_KW)
+    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
+                                sun_intensity=6.0)
+    cfg = integrator.RenderConfig(width=128, height=72, samples_per_pixel=4,
+                                  use_albedo=False, use_normal=False,
+                                  use_z_depth=False)
+    k1.closest_hit.launches = fs.shade_advance.launches = 0
+    out, st = integrator.render(scene, cam, env, 0, cfg, with_stats=True)
+    assert st["engine"] == "pool" and k1.closest_hit.launches > 0
+    assert fs.shade_advance.launches == 0
+    img = out["beauty"].cpu().numpy()
+    golden = np.load(goldens.GOLDEN_DIR / "smoke_pool_128x72.npz")["beauty"]
+    d = np.abs(img - golden)
+    assert np.isfinite(img).all() and img.max() > 0
+    assert d.mean() <= 0.06 and (d.max(axis=-1) > 0.05).mean() <= 0.20
+
+
+@pytest.mark.cuda
+def test_sort_rays_hits_equal_on_card(inputs):
+    """sort_rays on the card: the same hits as the unsorted K4 route."""
+    scene, _, od = inputs
+    o, d = od[:3].T.contiguous(), od[3:].T.contiguous()
+    tables = intersect.hit_tables(scene)
+    a = intersect.intersect(scene, o, d, 1e-3, tables)
+    b = intersect.intersect(scene, o, d, 1e-3, tables, sort_rays=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

@@ -268,8 +268,10 @@ def test_default_render_runs_on_the_fused_pool(fog_scene):
 
 
 def test_textured_fog_refused_on_the_fused_pool():
-    """Textured fog needs the unfused pool: the fused pool raises, naming
-    the ROADMAP item, and the chunked integrator renders it."""
+    """Textured fog is outside the fused step: its tables raise, naming
+    the unfused pool, which integrator.render routes the render to; the
+    unfused pool and the chunked integrator render it and agree within
+    float reassociation (lane streams are (pixel, sample)-keyed)."""
     b = SceneBuilder()
     tex = b.textures.add_checker(0.5, (0.9, 0.9, 0.9), (0.1, 0.1, 0.1))
     b.geometry.add_sphere((0.0, -100.5, 0.0), 100.0,
@@ -279,10 +281,14 @@ def test_textured_fog_refused_on_the_fused_pool():
     cam = tcam.make_camera(image_width=8, image_height=4, **CAM_KW)
     env = tenv.make_environment(**SUN_KW)
     cfg = tint.RenderConfig(width=8, height=4, samples_per_pixel=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the unfused pool"):
-        tint.render(scene, cam, env, 0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the unfused pool"):
+    pool, st = tint.render(scene, cam, env, 0, cfg, device="cpu",
+                           with_stats=True)
+    assert st["engine"] == "pool"
+    with pytest.raises(NotImplementedError, match="routes textured fog to the "
+                                                  "unfused pool"):
         tfs.build_tables(scene, env, cfg.env_mode)
     out = tint.render(scene, cam, env, 0,
                       dataclasses.replace(cfg, wavefront=False), device="cpu")
     assert torch.isfinite(out["beauty"]).all()
+    for name in out:
+        torch.testing.assert_close(pool[name], out[name], rtol=3e-4, atol=3e-5)

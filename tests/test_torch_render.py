@@ -127,7 +127,8 @@ def test_render_defaults_to_cuda(scene):
 
 def test_out_of_slice_features_raise(scene):
     """What stays out of the port: the differentiable mode (on either
-    engine) and textured fog on the fused pool."""
+    engine). Textured fog, outside the fused step, now renders on the
+    unfused pool."""
     cam = tcam.make_camera(image_width=8, image_height=4, **CAM_KW)
     env = tenv.make_environment(**ENV_KW)
     for kw in (dict(differentiable=True),
@@ -140,8 +141,9 @@ def test_out_of_slice_features_raise(scene):
                           b.materials.lambertian("m", (0.5, 0.5, 0.5)))
     tex = b.textures.add_checker(0.5, (0.9, 0.9, 0.9), (0.1, 0.1, 0.1))
     b.add_fog_sphere((0.0, 0.0, 0.0), 3.0, 0.1, (1.0, 1.0, 1.0), texture_id=tex)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tint.render(b.build(), cam, env, 0, _cfg(8, 4, 1), device="cpu")
+    out, st = tint.render(b.build(), cam, env, 0, _cfg(8, 4, 1), device="cpu",
+                          with_stats=True)
+    assert st["engine"] == "pool" and torch.isfinite(out["beauty"]).all()
 
 
 def test_port_imports_no_jax():

@@ -1,7 +1,7 @@
 """JSON scene files (models/sceneio.py) against the reference package's
 loader on the CPU: examples/scene_demo.json gives the same tables, camera,
 environment and RenderConfig; save/load round-trips, meshes and fog load;
-image paths raise NotImplementedError."""
+image paths that do not load (the sentinel texture, a black sky)."""
 
 import dataclasses
 import json
@@ -94,11 +94,23 @@ def test_round_trip_with_mesh_and_fog(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("section", ["texture", "hdr_path"])
-def test_image_paths_raise(section):
+def test_image_paths_raise(section, tmp_path, monkeypatch):
+    """Image paths load now and raise nothing: an image texture that does
+    not load is the cyan missing-texture sentinel, an HDR map that does not
+    load (and has no namesake under the asset root) is black; both as the
+    reference's loader gives them. tests/test_torch_image_io.py loads real
+    files."""
+    monkeypatch.setenv("RAYTRACER_TPU_ASSETS", str(tmp_path))
     doc = {"objects": []}
     if section == "texture":
         doc["textures"] = {"wood": {"type": "image", "path": "wood.png"}}
+        doc["materials"] = {"m": {"type": "lambertian", "texture": "wood"}}
     else:
         doc["environment"] = {"mode": "hdr", "hdr_path": "sky.hdr"}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, post chain"):
-        tio.load_scene_dict(doc)
+    got = tio.load_scene_dict(doc, base_dir=str(tmp_path), with_bvh=False)
+    _assert_same(jio.load_scene_dict(doc, base_dir=str(tmp_path),
+                                     with_bvh=False), got)
+    if section == "texture":
+        assert int(got[0].textures.kind[-1]) == 2   # KIND_MISSING
+    else:
+        assert float(got[2].hdr_image.abs().max()) == 0.0
