@@ -82,16 +82,32 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
  22. post      the post chain (bloom, sharpening) card against CPU, window
                statistics against the image's, a PNG written under build/
                and read back;
+ 23. diff      the differentiable mode: D1 the chunked smoke's frame with
+               differentiable=True (K4 on detached rays) against the CPU
+               golden and the plain render; D2 the reference's tiny
+               gradient scene, autograd card against CPU, and its five
+               finite-difference checks on the card; D3 the differentiable
+               cell (showcase, 400x225 @ 4 spp, depth 8, low sun) forward
+               and backward timed, peak memory, K4's launches and ms, a
+               profile; D4 20 Adam steps of fit from a perturbed albedo and
+               a sun turned by ~10 degrees;
+ 24. denoise   Q1 the reference's denoise-quality gate (Shirley and Cornell
+               at 96x54, 8 against 384 spp, the fused pool's AOVs) at its
+               thresholds; Q2 both denoisers card against CPU; Q3 both
+               timed on the 1920x1080 @ 8 spp showcase buffers, with peak
+               memory and the U-Net's operation bound;
 then one JSON line of per-kernel numbers (K1 and K4 with the funnel's
 numbers as funnel_*, K1's in the unfused pool as pool_*, K3's window
-variant as window_*, K4's sort_rays numbers), the nvidia-smi line, and the
-device JSON line last.
+variant as window_*, K4's sort_rays numbers and its diff_launches and
+diff_ms on the differentiable path), the nvidia-smi line, and the device
+JSON line last.
 Takes no arguments and always runs every phase.
 Exits non-zero without a CUDA device, and outside a checkout of the repo.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -110,6 +126,26 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # About 0.1 s of device sleep ahead of each timed round (at ~2 GHz).
 SLEEP_CYCLES = 200_000_000
+# The differentiable cell (phase diff, D3 and D4): width, height, spp. Its
+# sun stands low behind the camera: the sky's colours depend on the sun's
+# height only between about -7.2 and +2.3 degrees of elevation
+# (camera.hpp:871-925; its azimuth shows only in the disc, which stays out
+# of the frame). D4's fit starts with the sun FIT_SUN_DROP degrees lower,
+# inside that band. The shader normalises the direction; stored at length
+# DIFF_SUN_LENGTH, an Adam step of 2e-2 per component turns it by at most
+# ~0.6 degrees, so 20 steps can cover the drop without Adam's momentum
+# carrying the sun past +2.3 degrees, above which the image no longer
+# depends on it.
+DIFF_SIZE = (400, 225, 4)
+DIFF_SUN_ELEVATION, DIFF_SUN_AZIMUTH, DIFF_SUN_LENGTH = 1.16, 26.57, 2.0
+FIT_SUN_DROP = 8.0
+# D4's material: an interior albedo (0.1, 0.4, 0.9), ~1,100 camera hits.
+FIT_MATERIAL = "light_blue_diffuse"
+FIT_STEPS = 20
+# Phase denoise: Q1's frame and sample counts (the reference's
+# tests/test_denoise_quality.py), Q3's frame and spp.
+Q1_SIZE, Q1_SPP = (96, 54), (8, 384)
+Q3_SIZE = (1920, 1080, 8)
 # f32 operations of one K1 epilogue with its compare against the running
 # best, counted from csrc/closest_hit.cu (sphere_epi, tri_epi, box_epi).
 EPILOGUE_OPS = (15, 12, 35)
@@ -855,22 +891,29 @@ def phase_full(results: dict) -> None:
 
 def _profile(label: str, inputs, cfg, host: bool = True) -> dict | None:
     """Device time by kernel and the device's idle share over one render
-    (seed 1) of `cfg`, from a torch.profiler trace: logged, and returned as
-    {"wall_ms", "busy_ms", "kernels": {name: (ms, count)}} (None when the
-    trace holds no device time). host=False traces the device only (a
-    render of ~10^5 small kernels otherwise takes a minute to trace)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    (seed 1) of `cfg`: `_profile_fn` of the render."""
     from raytracer_project_tpu_torch.ops import integrator
 
     scene, cam, env = inputs
+    return _profile_fn(label, lambda: integrator.render(
+        scene, cam, env, 1, cfg)["beauty"].cpu(), host)
+
+
+def _profile_fn(label: str, fn, host: bool = True) -> dict | None:
+    """Device time by kernel and the device's idle share over one call of
+    `fn` (which ends in a host read), from a torch.profiler trace: logged,
+    and returned as {"wall_ms", "busy_ms", "kernels": {name: (ms, count)}}
+    (None when the trace holds no device time). host=False traces the
+    device only (a render of ~10^5 small kernels otherwise takes a minute
+    to trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        out = integrator.render(scene, cam, env, 1, cfg)
-        out["beauty"].cpu()
+        fn()
         wall = time.perf_counter() - t0
     # Kernel executions only (device-side events); host ops are left out,
     # since they carry the device time of the kernels they launch.
@@ -1850,10 +1893,13 @@ def phase_pool_smoke() -> None:
                      cpu[name].numpy())
 
 
-class _K1Events:
-    """CUDA events around every K1 launch (the C entry closest_hit_od)
-    while inside: K1's device ms per launch in a render, without the
-    profiler (2 events per launch)."""
+class _KernelEvents:
+    """CUDA events around every launch of one C entry (closest_hit_od is
+    K1, closest_hit_feats K4) while inside: its device ms per launch in a
+    render, without the profiler (2 events per launch)."""
+
+    def __init__(self, entry: str):
+        self.entry = entry
 
     def __enter__(self):
         import torch
@@ -1863,7 +1909,7 @@ class _K1Events:
         self.pairs, self.orig = [], kernels.launch
 
         def timed(entry, *args):
-            if entry != "closest_hit_od":
+            if entry != self.entry:
                 return self.orig(entry, *args)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
@@ -1898,7 +1944,7 @@ def _pool_render(label, scene, cam, env, cfg, seed=1):
     with _NoFused():
         _reset_counters()
         torch.cuda.synchronize()
-        with _K1Events() as k1:
+        with _KernelEvents("closest_hit_od") as k1:
             t0 = time.perf_counter()
             out, stats = integrator.render(scene, cam, env, seed, cfg,
                                            with_stats=True)
@@ -2294,6 +2340,460 @@ def phase_post(beauty) -> None:
         check(np.array_equal(back, px), f"post: the {writer} PNG differs")
 
 
+# --- phases 23 and 24: the differentiable mode and the denoisers --------------
+
+def _sun_vector(elevation: float, azimuth: float = DIFF_SUN_AZIMUTH,
+                length: float = DIFF_SUN_LENGTH):
+    """The sun direction at `elevation` and `azimuth` degrees (azimuth from
+    +x toward +z), stored at `length`."""
+    import numpy as np
+
+    e, a = np.deg2rad(elevation), np.deg2rad(azimuth)
+    return (float(length * np.cos(e) * np.cos(a)), float(length * np.sin(e)),
+            float(length * np.cos(e) * np.sin(a)))
+
+
+def _sun_angles(v, truth):
+    """(angle between v and truth, v's elevation), in degrees."""
+    import numpy as np
+
+    u, w = np.asarray(v, np.float64), np.asarray(truth, np.float64)
+    u, w = u / np.linalg.norm(u), w / np.linalg.norm(w)
+    return (float(np.rad2deg(np.arccos(np.clip(u @ w, -1.0, 1.0)))),
+            float(np.rad2deg(np.arcsin(u[1]))))
+
+
+@contextlib.contextmanager
+def _recorded_searches():
+    """While inside, every closest-hit search (ops/intersect.py
+    `intersect`, which intersect_detached calls) appends its Hit, copied to
+    the CPU, to the list this yields."""
+    from raytracer_project_tpu_torch.ops import intersect as isect
+
+    search, records = isect.intersect, []
+
+    def recorded(*args, **kw):
+        hit = search(*args, **kw)
+        records.append(isect.Hit(*(x.detach().cpu() for x in hit)))
+        return hit
+
+    isect.intersect = recorded
+    try:
+        yield records
+    finally:
+        isect.intersect = search
+
+
+def _free_render(state, cfg, paths, seed, device):
+    """A differentiable render on `device` with its searches recorded:
+    (image, {path: leaf}, the searches' Hits)."""
+    from raytracer_project_tpu_torch import diff
+
+    state = state.to(device)
+    params = {p: diff.tree_get(state, p).detach().clone().requires_grad_(True)
+              for p in paths}
+    with _recorded_searches() as hits:
+        img = diff.render_beauty(diff.apply_params(state, params), seed, cfg,
+                                 device=device)
+    return img, params, hits
+
+
+def _grads(loss, params):
+    """(loss, {path: gradient as numpy}); a leaf no part of the loss reaches
+    has zeros."""
+    import numpy as np
+    import torch
+
+    gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                             retain_graph=True)
+    return float(loss.detach()), {
+        p: (np.zeros(tuple(v.shape), np.float32) if g is None
+            else g.cpu().numpy()) for (p, v), g in zip(params.items(), gs)}
+
+
+def _diff_cell(dev):
+    """The differentiable cell: the showcase (seed 3) at DIFF_SIZE, depth 8,
+    beauty, PHYSICAL_SUN with the sun at DIFF_SUN_ELEVATION; the true state,
+    the config, the start state (FIT_MATERIAL's albedo blended 40% toward
+    (0.2, 0.8, 0.5), the sun FIT_SUN_DROP degrees lower), and that
+    material's row."""
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch import diff
+    from raytracer_project_tpu_torch.core import rng
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.models import presets
+    from raytracer_project_tpu_torch.models.scene import SceneBuilder
+    from raytracer_project_tpu_torch.ops import integrator, intersect
+
+    w, h, spp = DIFF_SIZE
+    scene = presets.showcase_scene().to(dev)
+    cam = tcam.make_camera(image_width=w, image_height=h, **CAM_KW).to(dev)
+    truth = _sun_vector(DIFF_SUN_ELEVATION)
+    env = tenv.make_environment(sun_direction=truth, sun_intensity=6.0).to(dev)
+    cfg = integrator.RenderConfig(
+        width=w, height=h, samples_per_pixel=spp, max_depth=8,
+        env_mode=tenv.PHYSICAL_SUN, use_albedo=False, use_normal=False,
+        use_z_depth=False, differentiable=True)
+    state = diff.RenderState(scene, cam, env)
+    # The showcase registers the reference's materials first, in this order.
+    b = SceneBuilder()
+    presets.load_reference_materials(b, np.random.default_rng(3))
+    row = b.materials.get(FIT_MATERIAL)
+    pix = torch.arange(w * h, device=dev)
+    lr = rng.lane_rng(rng.seed_from_int(0), pix, 0).with_ctx(0, 0)
+    o, d = tcam.generate_rays(cam, lr, pix, w)
+    hit = intersect.intersect(scene, o, d, 1e-3, intersect.hit_tables(scene))
+    seen = int((intersect.make_record(scene, o, d, hit).mat[hit.hit]
+                == row).sum())
+    m = scene.materials
+    albedo = m.albedo.clone()
+    albedo[row] = 0.6 * albedo[row] + 0.4 * albedo.new_tensor((0.2, 0.8, 0.5))
+    sun = _sun_vector(DIFF_SUN_ELEVATION - FIT_SUN_DROP)
+    start = diff.apply_params(state, {
+        "scene.materials.albedo": albedo,
+        "env.sun_direction": env.sun_direction.new_tensor(sun)})
+    angle, elev = _sun_angles(sun, truth)
+    log(f"diff cell: {w}x{h}@{spp}spp depth 8, {FIT_MATERIAL} (row {row}, "
+        f"{seen} camera hits) albedo {m.albedo[row].tolist()} -> "
+        f"{albedo[row].tolist()}, sun {tuple(round(x, 5) for x in truth)} -> "
+        f"{tuple(round(x, 5) for x in sun)} (elevation "
+        f"{DIFF_SUN_ELEVATION} -> {elev:.2f} degrees, {angle:.2f} degrees "
+        f"apart)")
+    check(seen > 0, f"diff cell: {FIT_MATERIAL} is not in the frame")
+    return state, cfg, start, row
+
+
+def phase_diff(results: dict) -> None:
+    """D1-D4: the differentiable mode (K4 on detached rays, autograd through
+    the chunked integrator) and the inverse fit on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch import diff
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.models import materials as tmat
+    from raytracer_project_tpu_torch.models import presets
+    from raytracer_project_tpu_torch.ops import integrator
+    from raytracer_project_tpu_torch.tools import diff_cases
+
+    dev = torch.device("cuda")
+    # D1: the chunked smoke's frame in the differentiable mode.
+    scene = presets.showcase_scene(grid=6)
+    cam = tcam.make_camera(image_width=64, image_height=36, **CAM_KW)
+    env = tenv.make_environment(**ENV_KW)
+    cfg = dataclasses.replace(_chunked_cfg(64, 36, 8, max_depth=6, aovs=False),
+                              differentiable=True)
+    state = diff.RenderState(scene.to(dev), cam, env)
+    _reset_counters()
+    with _PlainCallCounter() as plain:
+        img = diff.render_beauty(state, 0, cfg, device=dev).detach().cpu().numpy()
+    launches = _launches(CHUNKED_KERNELS)
+    log(f"diff D1: 64x36@8spp depth 6 differentiable, launches {launches}, "
+        f"plain calls {plain.calls}")
+    check(all(v > 0 for v in launches.values()), "K4 was not launched")
+    check(plain.calls == 0, "a plain version ran during the CUDA render")
+    golden = np.load(os.path.join(REPO, "tests", "goldens",
+                                  "showcase.npz"))["beauty"]
+    _image_agree("D1 differentiable vs CPU golden showcase.npz", img, golden)
+    # The same mode on the CPU (tests/test_torch_diff.py holds that against
+    # the reference's differentiable render under jax.jit).
+    with torch.no_grad():
+        cpu = diff.render_beauty(diff.RenderState(scene, cam, env), 0, cfg,
+                                 device="cpu").numpy()
+    dd = np.abs(img - cpu)
+    log(f"  D1 vs the CPU's differentiable render: mean|d| {dd.mean():.2e}, "
+        f"frac(>3e-3) {(dd > 3e-3).mean():.5f} (budgets 1e-3 / 0.005)")
+    check(dd.mean() < 1e-3 and (dd > 3e-3).mean() < 0.005,
+          "D1: the card's and the CPU's differentiable renders disagree")
+    # Against the plain render: the recomputed t moves hit points by a few
+    # ulps and turns a path here and there. The reference's own
+    # differentiable render leaves 0.535% of values over 3e-3 against its
+    # plain render here (jax.jit on the CPU), so only the mean is held.
+    ref = integrator.render(scene, cam, env, 0, dataclasses.replace(
+        cfg, differentiable=False), device=dev)["beauty"].cpu().numpy()
+    dd = np.abs(img - ref)
+    log(f"  D1 vs the card's plain render: mean|d| {dd.mean():.2e} (budget "
+        f"1e-3), frac(>3e-3) {(dd > 3e-3).mean():.5f} (the reference's own "
+        f"0.00535)")
+    check(dd.mean() < 1e-3, "D1: differentiable and plain renders disagree")
+
+    # D2: the reference's tiny gradient scene, free-running on the card and
+    # on the CPU. Lanes whose closest hit differs on any search (K4 against
+    # its plain version) are counted; the gradients of the loss over the
+    # pixels whose every lane agrees are held card against CPU, and the
+    # whole loss's gap is logged beside them.
+    paths = ["scene.materials.albedo", "scene.materials.param",
+             "env.background_color", "env.sun_intensity",
+             "env.sun_direction", "cam.center"]
+    target = torch.from_numpy(np.random.default_rng(8).uniform(
+        0.0, 1.0, (16, 24, 3)).astype(np.float32))
+
+    def rel(ga, gb):
+        return {p: float(np.abs(ga[p] - gb[p]).max())
+                / (float(np.abs(gb[p]).max()) + 1e-6) for p in paths}
+
+    for mode in (tenv.SOLID_COLOR, tenv.PHYSICAL_SUN):
+        state, tcfg = diff_cases.tiny_state(mode)
+        runs = [_free_render(state, tcfg, paths, 0, dv) for dv in (dev, "cpu")]
+        lanes, pixels = diff_cases.search_agreement(runs[0][2], runs[1][2],
+                                                    tcfg.n_pixels)
+        weight = pixels.reshape(tcfg.height, tcfg.width, 1).float()
+        whole, held = [], []
+        for img, params, _ in runs:
+            dt = img - target.to(img.device)
+            whole.append(_grads((dt * dt).mean(), params))
+            w8 = weight.to(img.device)
+            held.append(_grads((dt * dt * w8).sum() / (3 * w8.sum()), params))
+        r_whole, r_held = rel(whole[0][1], whole[1][1]), rel(held[0][1], held[1][1])
+        n_lanes = int(lanes.numel())
+        n_diff = int((~lanes).sum())
+        log(f"diff D2 mode {mode}: {n_diff} of {n_lanes} lanes hit another "
+            f"primitive on some search (budget 2.5%), {int(pixels.sum())} of "
+            f"{tcfg.n_pixels} pixels agree on every lane; loss card / CPU "
+            f"{whole[0][0]:.7f} / {whole[1][0]:.7f}, on the agreeing pixels "
+            f"{held[0][0]:.7f} / {held[1][0]:.7f} (rtol 1e-4); gradients card "
+            f"vs CPU, max|d| / (max|g| + 1e-6) per group, on the agreeing "
+            f"pixels (budget 2e-3) and on the whole image:")
+        for p in paths:
+            log(f"    {p}: max|g| {np.abs(held[0][1][p]).max():.4g}, "
+                f"{r_held[p]:.2e}, {r_whole[p]:.2e}")
+        check(n_diff <= 0.025 * n_lanes, "D2: too many lanes change their hit")
+        check(abs(held[0][0] - held[1][0]) <= 1e-4 * abs(held[1][0]),
+              "D2: loss card vs CPU on the agreeing pixels")
+        check(max(r_held.values()) <= 2e-3,
+              "D2: gradients card vs CPU on the agreeing pixels")
+    for mode, path, index, rtol in diff_cases.FD_CHECKS:
+        state, tcfg = diff_cases.tiny_state(getattr(tenv, mode))
+        g, fd = diff_cases.fd_check(state, tcfg, 0, path, index, device=dev)
+        ok = diff_cases.fd_agrees(g, fd, rtol)
+        log(f"  D2 FD {path}[{index}] ({mode}): autograd {g:.6g}, central "
+            f"difference {fd:.6g}, rtol {rtol}: {'ok' if ok else 'FAIL'}")
+        check(ok, f"D2: {path}[{index}] autograd disagrees with FD")
+
+    # D3: the differentiable cell at full size, from the fit's start.
+    state, cfg, start, row = _diff_cell(dev)
+    with torch.no_grad():
+        target = diff.render_beauty(state, 5, cfg, device=dev)
+    paths = ["scene.materials.albedo", "scene.materials.param",
+             "env.sun_direction"]
+    loss_fn, p0 = diff.make_loss_fn(start, cfg, target, paths, device=dev)
+
+    def leaves():
+        return {k: v.detach().clone().requires_grad_(True) for k, v in p0.items()}
+
+    params = leaves()                                  # warm-up
+    loss_fn(params, 5).backward()
+    torch.cuda.synchronize()
+    params = leaves()
+    _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _KernelEvents("closest_hit_feats") as k4:
+        t0 = time.perf_counter()
+        loss = loss_fn(params, 5)
+        float(loss.detach())
+        t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base
+    fwd, bwd = t1 - t0, t2 - t1
+    n_k4 = _launches(CHUNKED_KERNELS)["closest_hit_feats"]
+    k4_event_ms = k4.ms_per_launch()
+
+    def fwd_bwd():
+        p = leaves()
+        loss_fn(p, 5).backward()
+        float(p["env.sun_direction"].grad[0])
+
+    prof = _profile_fn("D3 forward + backward", fwd_bwd, host=False)
+    idle = (max(0.0, 1.0 - prof["busy_ms"] / prof["wall_ms"]) if prof
+            else None)
+    # K4's device time per launch from the trace (the events above also
+    # hold the host's launch gaps of this host-paced loop).
+    scans = [v for k, v in (prof["kernels"].items() if prof else ())
+             if "tile_scan_kernel" in k]
+    k4_ms = (sum(t for t, _ in scans) / sum(c for _, c in scans) if scans
+             else None)
+    log(f"diff D3: loss {float(loss.detach()):.6g}; forward {fwd:.3f} s, "
+        f"backward {bwd:.3f} s, backward/forward {bwd / fwd:.3f}; peak "
+        f"memory {peak / 2**30:.3f} GiB above the inputs "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.3f} GiB in all); K4 "
+        f"launches {n_k4}, "
+        f"{'not measured' if k4_ms is None else f'{k4_ms:.4f}'} ms per launch "
+        f"(profile), {k4_event_ms:.4f} (events); idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'} (profile)")
+    for p in paths:
+        g = params[p].grad
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f"D3: gradient of {p} missing or not finite")
+        log(f"  D3 grad {p}: max|g| {float(g.abs().max()):.4g}"
+            + (f", row {row} {g[row].tolist()}" if p.endswith("albedo") else
+               f" {g.tolist()}" if p.endswith("direction") else ""))
+    check(float(params["scene.materials.albedo"].grad.abs().max()) > 0
+          and float(params["env.sun_direction"].grad.abs().max()) > 0,
+          "D3: albedo or sun-direction gradient is zero")
+    check(n_k4 > 0, "D3: K4 was not launched")
+    results["closest_hit_feats"].update(diff_launches=n_k4, diff_ms=k4_ms,
+                                        diff_event_ms=k4_event_ms)
+
+    # D4: the fit from the start state; the sun's angle to the truth after
+    # each step.
+    emissive = start.scene.materials.mtype == tmat.EMISSIVE
+    truth = state.env.sun_direction.tolist()
+    suns = [_sun_angles(start.env.sun_direction.tolist(), truth)]
+
+    def project(p):
+        suns.append(_sun_angles(p["env.sun_direction"].tolist(), truth))
+        a = p["scene.materials.albedo"]
+        return {"scene.materials.albedo": torch.where(
+            emissive[:, None], a, torch.clamp(a, 0.0, 1.0))}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, losses = diff.fit(start, 5, cfg, target,
+                              ["scene.materials.albedo", "env.sun_direction"],
+                              steps=FIT_STEPS, learning_rate=2e-2,
+                              project=project, device=dev)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / FIT_STEPS
+    log(f"diff D4: fit {FIT_STEPS} steps (Adam lr 2e-2), {per_step:.3f} s "
+        f"per step; losses {', '.join(f'{x:.6g}' for x in losses)}; "
+        f"last/first {losses[-1] / losses[0]:.4f} (budget < 0.5); albedo "
+        f"row {row} {fitted.scene.materials.albedo[row].tolist()} (start "
+        f"{start.scene.materials.albedo[row].tolist()}, true "
+        f"{state.scene.materials.albedo[row].tolist()}); sun "
+        f"{fitted.env.sun_direction.tolist()} (true {truth}); the sun's angle "
+        f"to the truth / its elevation in degrees, from the start, after "
+        f"each step: {', '.join(f'{a:.2f}/{e:.2f}' for a, e in suns)}")
+    check(all(np.isfinite(losses)), "D4: a loss is not finite")
+    check(losses[-1] < 0.5 * losses[0], "D4: the fit did not halve the loss")
+    check(suns[-1][0] < suns[0][0], "D4: the sun did not turn toward the truth")
+
+
+def _q1_scenes():
+    """The reference's denoise-quality scenes (tests/test_denoise_quality.py
+    :35-57): (name, scene, camera, environment, env mode)."""
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.models import presets
+
+    w, h = Q1_SIZE
+    return [
+        ("shirley", presets.shirley_final_scene(grid=5, with_bvh=False),
+         tcam.make_camera(image_width=w, image_height=h, vfov=20,
+                          lookfrom=(13, 2, 3), lookat=(0, 0, 0),
+                          defocus_angle=0.0, focus_dist=10.0),
+         tenv.make_environment(sun_direction=(0.4, 0.6, 0.2),
+                               sun_intensity=5.0), tenv.PHYSICAL_SUN),
+        ("cornell", presets.cornell_box_scene(with_bvh=False),
+         tcam.make_camera(image_width=w, image_height=h, vfov=40,
+                          lookfrom=(278, 278, -800), lookat=(278, 278, 0)),
+         tenv.make_environment(background_color=(0.0, 0.0, 0.0)),
+         tenv.SOLID_COLOR)]
+
+
+def _aov_render(scene, cam, env, mode, w, h, spp, seed):
+    """(beauty, albedo, normal) [H, W, 3] on the card from the fused pool
+    with the albedo and normal AOVs, depth 8."""
+    from raytracer_project_tpu_torch.ops import integrator
+
+    cfg = integrator.RenderConfig(
+        width=w, height=h, samples_per_pixel=spp, max_depth=8, env_mode=mode,
+        use_albedo=True, use_normal=True, use_z_depth=False, wavefront=True)
+    out = integrator.render(scene, cam, env, seed, cfg, device="cuda")
+    return out["beauty"], out["albedo"], out["normal"]
+
+
+def phase_denoise() -> None:
+    """Q1-Q3: the reference's denoise-quality gate on the card, both
+    denoisers card against CPU, and their times at 1080p."""
+    import torch
+
+    from raytracer_project_tpu_torch.models import denoiser_unet
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.ops import denoise
+    from raytracer_project_tpu_torch.utils import metrics
+
+    dev = torch.device("cuda")
+    model = denoiser_unet.load_default(device=dev)
+    check(model is not None, "the shipped denoiser weights are missing")
+    w, h = Q1_SIZE
+    low, high = Q1_SPP
+    for name, scene, cam, env, mode in _q1_scenes():
+        scene = scene.to(dev)
+        ref, _, _ = _aov_render(scene, cam, env, mode, w, h, high, 42)
+        _reset_counters()
+        noisy, albedo, normal = _aov_render(scene, cam, env, mode, w, h, low, 42)
+        launches = _launches(FEATURES_KERNELS)
+        check(all(v > 0 for v in launches.values()),
+              f"Q1 {name}: the fused pool's AOV kernels were not launched")
+        with torch.no_grad():
+            at = denoise.atrous_denoise(noisy, albedo, normal)
+            un = denoise.denoise(noisy, albedo, normal, model=model)
+        p = {k: float(metrics.psnr(v, ref)) for k, v in
+             (("raw", noisy), ("atrous", at), ("unet", un))}
+        s = {k: float(metrics.ssim(v, ref)) for k, v in
+             (("raw", noisy), ("atrous", at), ("unet", un))}
+        log(f"denoise Q1 {name} {w}x{h} {low} vs {high} spp: PSNR raw "
+            f"{p['raw']:.2f} atrous {p['atrous']:.2f} unet {p['unet']:.2f} dB; "
+            f"SSIM raw {s['raw']:.4f} atrous {s['atrous']:.4f} unet "
+            f"{s['unet']:.4f}; launches {launches}")
+        check(p["atrous"] > p["raw"] and s["atrous"] > s["raw"],
+              f"Q1 {name}: a-trous does not improve on the raw render")
+        check(p["unet"] > p["raw"] + 2.0 and s["unet"] > s["raw"] + 0.04,
+              f"Q1 {name}: the U-Net gains less than 2 dB / 0.04 SSIM")
+        if name == "cornell":
+            check(p["unet"] > p["raw"] + 6.0 and s["unet"] > 0.98,
+                  "Q1 cornell: the U-Net gains less than 6 dB or SSIM <= 0.98")
+        # Q2: both denoisers card against CPU on these buffers.
+        cpu_in = [x.cpu() for x in (noisy, albedo, normal)]
+        cpu_model = denoiser_unet.load_default(device="cpu")
+        with torch.no_grad():
+            for label, card, cpu in (
+                    ("atrous", at, denoise.atrous_denoise(*cpu_in)),
+                    ("unet", un, cpu_model(*cpu_in))):
+                err = float((card.cpu() - cpu).abs().max())
+                scale = float(cpu.abs().max())
+                log(f"  Q2 {name} {label} card vs CPU: max|d| {err:.3g} "
+                    f"(budget 1e-4 x max {scale:.3g})")
+                check(err <= 1e-4 * scale, f"Q2 {name} {label}: card vs CPU")
+
+    # Q3: both denoisers on the 1080p showcase buffers.
+    qw, qh, qspp = Q3_SIZE
+    inputs = _showcase(qw, qh)
+    buf = _aov_render(*inputs, tenv.PHYSICAL_SUN, qw, qh, qspp, 1)
+    pixels = qw * qh
+    flops = pixels * sum(
+        2 * kh * kw * cin * cout // (4 ** level)
+        for (_, (kh, kw, cin, cout), _), level in zip(
+            denoiser_unet._LAYERS, (0, 0, 1, 1, 2, 2, 1, 1, 0, 0, 0)))
+    nbytes = pixels * (9 + 3) * 4 + 4 * denoiser_unet.param_count(model.params())
+    bound, bound_by = bound_ms(nbytes, flops)
+    with torch.no_grad():
+        for label, fn in (("atrous", lambda: denoise.atrous_denoise(*buf)),
+                          ("unet", lambda: model(*buf))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            check(bool(torch.isfinite(out).all()), f"Q3 {label}: not finite")
+            ms = time_ms(f"Q3 {label} {qw}x{qh}", fn, n=5, rounds=3)
+            extra = (f"; bound {bound:.3f} ms ({bound_by}: {flops / 1e12:.4f} "
+                     f"TFLOP at 67 TFLOP/s f32), {bound / ms:.1%} of it"
+                     if label == "unet" else "")
+            log(f"denoise Q3 {label} {qw}x{qh}@{qspp}spp buffers: {ms:.3f} ms, "
+                f"peak memory {peak / 2**30:.3f} GiB above the inputs{extra}")
+
+
 def main() -> int:
     import torch
 
@@ -2338,6 +2838,8 @@ def main() -> int:
     phase_windows(results)
     phase_sort_rays(results)
     phase_post(phase_two_process())
+    phase_diff(results)
+    phase_denoise()
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,11 +54,46 @@ def lane_rng(seed: int, pix, samp=0, ctx=0) -> LaneRng:
     return LaneRng(seed, pix, u32(samp).to(pix.device), ctx)
 
 
-def seed_from_int(k: int) -> int:
-    """u32 seed of the integer render seed k: the reference's
-    seed_from_key(PRNGKey(k)) = data[0] + data[1] * 0x9E3779B9 with
-    key data [0, k]."""
+def seed_from_int(k) -> int:
+    """u32 seed of a render seed: an integer k is the reference's
+    seed_from_key(PRNGKey(k)) = data[0] + data[1] * 0x9E3779B9 with key
+    data [0, k]; a Key maps by the same rule from its own data."""
+    if isinstance(k, Key):
+        return (k.hi + k.lo * _C0) & MASK32
     return (int(k) * _C0) & MASK32
+
+
+class Key(NamedTuple):
+    """The two u32 words of a reference PRNG key (threefry2x32 key data
+    [hi, lo]); PRNGKey(k) is Key(0, k). The render entry points take one
+    wherever they take an integer seed."""
+
+    hi: int
+    lo: int
+
+
+def _threefry2x32(k0: int, k1: int, x0: int, x1: int):
+    """Threefry-2x32, 20 rounds, of one counter pair (x0, x1) under key
+    (k0, k1): the block function of the reference's PRNG keys."""
+    def rotl(v, r):
+        return ((v << r) | (v >> (32 - r))) & MASK32
+
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = (x0 + ks[0]) & MASK32, (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in rot[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x0, x1
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """jax.random.fold_in(key, data) of a threefry key, bit for bit: the
+    block function of (0, data) under the key."""
+    return Key(*_threefry2x32(key.hi, key.lo, 0, int(data) & MASK32))
 
 
 def u32(x) -> torch.Tensor:

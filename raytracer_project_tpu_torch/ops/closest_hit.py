@@ -205,6 +205,10 @@ def _launch(entry, rays, n, tmin, tables: ScanTables):
     """One launch of the compact-row scan `entry`."""
     kernels.require_cuda(rays, *tables.rows, *tables.bounds,
                          dtype=torch.float32)
+    if rays.requires_grad:
+        # The ctypes launch records nothing for autograd.
+        raise ValueError("the closest-hit kernels take detached rays "
+                         "(intersect.intersect_detached)")
     for rows, n_rows, w, bnd in zip(tables.rows, tables.counts, ROW_WIDTHS,
                                     tables.bounds):
         if rows.shape != (n_rows, w) or rows.data_ptr() % 16:

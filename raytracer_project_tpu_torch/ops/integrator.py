@@ -12,9 +12,11 @@ one of two engines, each with all six buffers and fog:
     shared by beauty, the AOVs and the split passes, then a bounce loop
     (camera.hpp:928-986) that intersects every lane on every bounce
     through intersect.intersect (K4 on the card) until all lanes are dead.
+    With differentiable=True (the engine it always takes) every search is
+    intersect.intersect_detached, and the buffers carry autograd gradients
+    to the scene, camera and environment tensors that require them.
 `accumulate_samples` renders a pixel window or a list of pixels
-(parallel/render.py shards frames that way). The differentiable mode
-raises NotImplementedError with the ROADMAP item that brings it.
+(parallel/render.py shards frames that way).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng, vecmath
+from ..core.tree import tree_map
 from ..core.constants import (
     RR_P_MAX, RR_P_MIN, RR_START_BOUNCE, T_MIN, WEAK_RAY_EPS,
     Z_DEPTH_MAX_DIST,
@@ -86,23 +89,40 @@ class SampleBuffers(NamedTuple):
     refraction: torch.Tensor
 
 
-def _check_supported(config: RenderConfig) -> None:
-    if config.differentiable:
-        raise NotImplementedError(
-            "differentiable mode is not ported yet (ROADMAP queue 1: "
-            "differentiable mode)")
+def _check_grad(scene, cam, env, config: RenderConfig) -> None:
+    """Raise where a gradient would be cut silently: a render outside the
+    differentiable mode, with grad enabled, of inputs that require grad
+    (the kernels record nothing for autograd). The reference's jax.grad
+    through its bounce while_loop raises the same way."""
+    if config.differentiable or not torch.is_grad_enabled():
+        return
+    leaves = []
+    tree_map(leaves.append, (scene, cam, env))
+    if any(isinstance(x, torch.Tensor) and x.requires_grad for x in leaves):
+        raise ValueError(
+            "an input requires grad but the render is not differentiable: "
+            "pass RenderConfig(differentiable=True), or render under "
+            "torch.no_grad()")
 
 
 def trace(scene, env, origin, direction, lane_rng: rng.LaneRng, *,
           tables, max_bounces: int, env_mode: int, throughput=None,
-          radiance=None, active=None, spec: int = 0, stats=None):
+          radiance=None, active=None, spec: int = 0, stats=None,
+          differentiable: bool = False):
     """Bounce loop (camera.hpp:928-986) over a wavefront: radiance f32[N, 3].
 
     Bounce b draws from context (b + 1, spec): the camera segment is
     bounce 0. Every lane is intersected on every bounce, dead ones
     included; the loop ends after max_bounces or once no lane is live (one
     host read per bounce). stats["segments"], when given, adds the live
-    lanes of each bounce. tables: the scene's intersect.hit_tables."""
+    lanes of each bounce. tables: the scene's intersect.hit_tables.
+
+    differentiable: intersect through intersect.intersect_detached. The
+    reference runs a fixed max_bounces there (a fori_loop, since its
+    while_loop has no transpose); autograd needs no such loop, and a bounce
+    with no live lane changes no value and no gradient, so the early exit
+    stays."""
+    find = intersect.intersect_detached if differentiable else intersect.intersect
     n = origin.shape[0]
     dev = origin.device
     if throughput is None:
@@ -118,7 +138,7 @@ def trace(scene, env, origin, direction, lane_rng: rng.LaneRng, *,
         if stats is not None:
             stats["segments"] += live
         lr = lane_rng.with_ctx(bounce + 1, spec)
-        hit = intersect.intersect(scene, origin, direction, T_MIN, tables)
+        hit = find(scene, origin, direction, T_MIN, tables)
         rec = intersect.make_record(scene, origin, direction, hit)
         # A fog scatter may come before the surface hit
         # (constant_medium.hpp:39-77).
@@ -170,13 +190,16 @@ def render_sample(scene, tables, cam, env, seed: int, config: RenderConfig,
     o, d = camera_mod.generate_rays(cam, lr0, pixel_ids, config.width)
     if stats is not None:
         stats["segments"] += n
-    first = intersect.intersect(scene, o, d, T_MIN, tables)
+    find = (intersect.intersect_detached if config.differentiable
+            else intersect.intersect)
+    first = find(scene, o, d, T_MIN, tables)
     rec = intersect.make_record(scene, o, d, first)
     rec = volumes.apply_to_record(scene.volumes, o, d, first, rec, lr0)
     hit_mask = rec.hit
     bg = env_mod.background_color(env, d, config.env_mode)
     trace_kw = dict(max_bounces=config.max_depth - 1, env_mode=config.env_mode,
-                    stats=stats, tables=tables)
+                    stats=stats, tables=tables,
+                    differentiable=config.differentiable)
 
     # Beauty: the first hit is shared (camera.hpp:989-1004).
     sc = shade.scatter(scene, rec, d, lr0)
@@ -282,11 +305,16 @@ def accumulate_samples(scene, cam, env, seed: int, config: RenderConfig,
     pixel's sum is the same whichever way the frame is split.
 
     with_stats also returns {"segments", "steps"}: path segments traced,
-    and pool steps (with "engine": "fused" | "pool") or chunks (chunked)."""
-    _check_supported(config)
+    and pool steps (with "engine": "fused" | "pool") or chunks (chunked).
+
+    differentiable=True takes the chunked engine whatever `wavefront` says
+    (the pools' kernels are not differentiable, in either package), and
+    the sums carry autograd gradients; without it, inputs that require
+    grad raise ValueError while grad is enabled."""
+    _check_grad(scene, cam, env, config)
     dev = scene.spheres.center.device
     cam, env = cam.to(dev), env.to(dev)
-    if config.wavefront:
+    if config.wavefront and not config.differentiable:
         from . import wavefront
 
         return wavefront.render_pool(
@@ -322,6 +350,18 @@ def finalize_buffers(acc: SampleBuffers, config: RenderConfig,
     return {k: (getattr(acc, k) / b).reshape(shape) for k, b in budgets.items()}
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: None means "cuda", and raises when no
+    CUDA device is present (there is no fallback to the CPU)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the port runs on the card by default and no CUDA device is "
+                "present; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
 def render(scene, cam, env, seed: int, config: RenderConfig, *,
            device=None, with_stats: bool = False):
     """Full-frame render on `device`: a dict of averaged f32[H, W, 3]
@@ -329,16 +369,10 @@ def render(scene, cam, env, seed: int, config: RenderConfig, *,
 
     device=None means "cuda", and raises when no CUDA device is present;
     pass device="cpu" to run the plain PyTorch versions of the kernels.
-    seed is an integer; lane streams match the reference package's render
-    with PRNGKey(seed). with_stats also returns {"segments", "steps"}."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "render() runs on the card by default and no CUDA device is "
-                "present; pass device='cpu' to render on the CPU")
-        device = "cuda"
-    device = torch.device(device)
-    _check_supported(config)
+    seed is an integer or an rng.Key; lane streams match the reference
+    package's render with PRNGKey(seed) (with the key of that data).
+    with_stats also returns {"segments", "steps"}."""
+    device = resolve_device(device)
     scene, cam, env = scene.to(device), cam.to(device), env.to(device)
     res = accumulate_samples(scene, cam, env, seed, config,
                              with_stats=with_stats)

@@ -28,7 +28,7 @@ import torch
 
 from ..core import soa, vecmath
 from ..core.constants import PI, T_MAX
-from ..core.tree import to_device
+from ..core.tree import to_device, tree_map
 from ..models.geometry import PRIM_BOX, PRIM_SPHERE, PRIM_TRIANGLE
 
 RAY_FEATURE_DIM = 16
@@ -755,6 +755,94 @@ def intersect(scene, o, d, tmin: float, tables, sort_rays: bool = False) -> Hit:
         # Ray i's result sits at slot dest[i].
         t, idx, typ = t[dest], idx[dest], typ[dest]
     return Hit(t=t, prim_type=typ, prim_idx=idx, hit=t < T_MAX)
+
+
+# --- the differentiable mode's detached intersection -------------------------
+#
+# Which primitive a ray hits is a discrete choice with no useful derivative.
+# The detached-sampling estimator of the reference (intersect.py:771-874)
+# runs the search on detached rays and tables (on the card that is K4, whose
+# ctypes launch records nothing for autograd), then recomputes the hit
+# distance of the chosen primitive in torch ops from the raw tables, so t
+# carries gradients to that primitive's parameters and to the ray. Only the
+# silhouette terms are dropped. The search scans the coefficient tables
+# built with the scene: a fit that moves geometry keeps searching the old
+# ones, as in the reference.
+
+def _eps_signed(x, eps=1e-12):
+    """x with |x| >= eps, keeping its sign (a division guard)."""
+    return torch.where(torch.abs(x) < eps, torch.where(x < 0.0, -eps, eps), x)
+
+
+def _diff_t_sphere(scene, o, d, idx, t_det):
+    """t of the chosen sphere: the quadratic solved again (sphere.hpp:18-39),
+    taking the root nearer the search's t."""
+    s = scene.spheres
+    oc = s.center[idx] - o
+    radius = s.radius[idx]
+    a = vecmath.length_squared(d)
+    h = vecmath.dot(d, oc)
+    c = vecmath.length_squared(oc) - radius * radius
+    # h h - a c as the reference's compiled form rounds it (one fused
+    # multiply-add). Chosen lanes have disc > 0, so the clamp's tie
+    # gradient never arises.
+    disc = vecmath.fma(h, h, -(a * c))
+    sq = vecmath.safe_sqrt(torch.clamp(disc, min=0.0))
+    inv_a = 1.0 / _eps_signed(a)
+    r0 = (h - sq) * inv_a
+    r1 = (h + sq) * inv_a
+    pick0 = torch.abs(r0.detach() - t_det) <= torch.abs(r1.detach() - t_det)
+    return torch.where(pick0, r0, r1)
+
+
+def _diff_t_triangle(scene, o, d, idx, t_det):
+    """t of the chosen triangle (Moller-Trumbore, triangle.hpp:17-82)."""
+    tr = scene.triangles
+    pvec = vecmath.cross(d, tr.e2[idx])
+    det = _eps_signed(vecmath.dot(tr.e1[idx], pvec))
+    qvec = vecmath.cross(o - tr.v0[idx], tr.e1[idx])
+    return vecmath.dot(tr.e2[idx], qvec) / det
+
+
+def _diff_t_box(scene, o, d, idx, t_det):
+    """t of the chosen affine-slab box: the local-frame slab distances
+    (cube.hpp:44-86), taking entry or exit, whichever is nearer the
+    search's t."""
+    b = scene.boxes
+    m = b.minv[idx].reshape(-1, 3, 3)
+    lo = torch.einsum("nij,nj->ni", m, o) + b.trans[idx]
+    ld = _eps_signed(torch.einsum("nij,nj->ni", m, d), 1e-30)
+    inv = 1.0 / ld
+    t0 = (-1.0 - lo) * inv
+    t1 = (1.0 - lo) * inv
+    tn = torch.minimum(t0, t1).amax(-1)
+    tf = torch.maximum(t0, t1).amin(-1)
+    pickn = torch.abs(tn.detach() - t_det) <= torch.abs(tf.detach() - t_det)
+    return torch.where(pickn, tn, tf)
+
+
+def intersect_detached(scene, o, d, tmin: float, tables) -> Hit:
+    """`intersect` for the differentiable mode: the search on detached
+    inputs (K4 on the card), then t of each chosen primitive recomputed
+    from the scene's tables, so t carries gradients to the primitive and
+    to o, d. Hit lanes carry the recomputed value (the search's t to float
+    rounding; the search's where it is not finite), as in the reference;
+    prim_type, prim_idx and hit are constants, and misses keep the
+    search's T_MAX. tables: the scene's `hit_tables`."""
+    detached = tree_map(
+        lambda x: x.detach() if isinstance(x, torch.Tensor) else x, scene)
+    det = intersect(detached, o.detach(), d.detach(), tmin, tables)
+    t_det = torch.where(det.hit, det.t, 1.0)
+    idx = det.prim_idx.long()
+    t = t_det
+    for ptype, table, fn in ((PRIM_SPHERE, scene.spheres, _diff_t_sphere),
+                             (PRIM_TRIANGLE, scene.triangles, _diff_t_triangle),
+                             (PRIM_BOX, scene.boxes, _diff_t_box)):
+        if table is not None and table.count:
+            ti = fn(scene, o, d, torch.clamp(idx, 0, table.count - 1), t_det)
+            t = torch.where(det.prim_type == ptype, ti, t)
+    t = torch.where(torch.isfinite(t), t, t_det)
+    return det._replace(t=torch.where(det.hit, t, det.t))
 
 
 # --- sort_rays: the coherence permutation of the "k4" route -------------------

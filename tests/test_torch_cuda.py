@@ -667,3 +667,101 @@ def test_sort_rays_hits_equal_on_card(inputs):
     b = intersect.intersect(scene, o, d, 1e-3, tables, sort_rays=True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_intersect_detached_on_card(inputs):
+    """The detached intersection on the card: K4 runs the search (one
+    launch) on rays whose gradient matters; its hits and t (recomputed from
+    the chosen primitives) hold the closest-hit budgets against the CPU's,
+    and the
+    gradients of sum(t) into the rays and the sphere centres, which come
+    from the recomputed t, agree with the CPU's within 1e-4 of their
+    largest entry wherever both searches chose the same primitive."""
+    scene, _, od = inputs
+    cpu_scene = presets.showcase_scene()
+    res = {}
+    for dev, sc in ((od.device, scene), (torch.device("cpu"), cpu_scene)):
+        o = od[:3].T.contiguous().to(dev).requires_grad_(True)
+        d = od[3:].T.contiguous().to(dev).requires_grad_(True)
+        center = sc.spheres.center.detach().clone().requires_grad_(True)
+        s = sc._replace(spheres=sc.spheres._replace(center=center))
+        k1.closest_hit_feats.launches = 0
+        h = intersect.intersect_detached(s, o, d, 1e-3, intersect.hit_tables(s))
+        assert k1.closest_hit_feats.launches == (dev.type == "cuda")
+        grads = torch.autograd.grad(torch.where(h.hit, h.t, 0.0).sum(),
+                                    (o, d, center))
+        res[dev.type] = [x.detach().cpu() for x in (h.t, h.prim_idx,
+                                                    h.prim_type)], grads
+    (tk, ik, yk), gk = res["cuda"]
+    (tp, ip, yp), gp = res["cpu"]
+    _hit_budgets(tk, ik, yk, tp, ip, yp)
+    same = (ik == ip) & (yk == yp) & (tk < 1e30) & (tp < 1e30)
+    for a, b in zip(gk[:2], gp[:2]):
+        a, b = a.cpu()[same], b[same]
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    # Only the spheres every lane agrees on: centres of disagreeing
+    # spheres take other lanes' gradients.
+    bad = torch.zeros(cpu_scene.spheres.count, dtype=torch.bool)
+    bad[torch.cat([ik[~same & (yk == 0)], ip[~same & (yp == 0)]]).long()] = True
+    a, b = gk[2].cpu()[~bad], gp[2][~bad]
+    assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    with pytest.raises(ValueError, match="detached"):
+        feats = intersect.ray_feature_rows(
+            od[:3].T.clone().requires_grad_(True), od[3:].T).contiguous()
+        k1.closest_hit_feats(feats, 1e-3, intersect.hit_tables(scene))
+
+
+@pytest.mark.cuda
+def test_diff_render_and_unet_on_card(cuda, monkeypatch):
+    """The differentiable render of the reference's tiny gradient scene on
+    the card (K4 launched) against the CPU's, both free-running: at most
+    2.5% of lanes hit another primitive on some search
+    (diff_cases.search_agreement), and on the pixels whose every lane
+    agrees the image holds to 1e-4 and the albedo gradient of the loss over
+    them within 2e-3 of its largest entry; and the shipped U-Net (cuDNN,
+    f32: TF32 off) against the CPU on seeded 37x53 buffers within 1e-4 of
+    the output's largest value."""
+    from raytracer_project_tpu_torch import diff
+    from raytracer_project_tpu_torch.models import denoiser_unet
+    from raytracer_project_tpu_torch.tools import diff_cases
+
+    search = intersect.intersect
+    state, cfg = diff_cases.tiny_state(tenv.PHYSICAL_SUN)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = state.to(dev)
+        albedo = st.scene.materials.albedo.detach().clone().requires_grad_(True)
+        st = diff.apply_params(st, {"scene.materials.albedo": albedo})
+        hits = []
+        monkeypatch.setattr(intersect, "intersect", lambda *a, **k: hits.append(
+            search(*a, **k)) or hits[-1])
+        k1.closest_hit_feats.launches = 0
+        img = diff.render_beauty(st, 0, cfg, device=dev)
+        monkeypatch.setattr(intersect, "intersect", search)
+        n = k1.closest_hit_feats.launches
+        assert 1 <= n <= 4 if dev.type == "cuda" else n == 0
+        runs[dev.type] = img, albedo, hits
+    lanes, pixels = diff_cases.search_agreement(runs["cuda"][2], runs["cpu"][2],
+                                                cfg.n_pixels)
+    assert int((~lanes).sum()) <= 0.025 * lanes.numel()
+    w = pixels.reshape(cfg.height, cfg.width, 1).float()
+    out = {}
+    for name, (img, albedo, _) in runs.items():
+        wd = w.to(img.device)
+        (g,) = torch.autograd.grad((img ** 2 * wd).sum(), albedo)
+        out[name] = (img * wd).detach().cpu(), g.cpu()
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    gk, gp = out["cuda"][1], out["cpu"][1]
+    assert float((gk - gp).abs().max()) <= 2e-3 * float(gp.abs().max())
+
+    r = np.random.default_rng(3)
+    bufs = [torch.from_numpy(r.uniform(0.0, 2.0, (37, 53, 3)).astype(np.float32))
+            for _ in range(3)]
+    tf32 = torch.backends.cudnn.allow_tf32
+    with torch.no_grad():
+        ref = denoiser_unet.load_default(device="cpu")(*bufs)
+        got = denoiser_unet.load_default(device=cuda)(*(b.to(cuda) for b in bufs))
+    assert torch.backends.cudnn.allow_tf32 == tf32   # the module restores it
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())

@@ -126,16 +126,26 @@ def test_render_defaults_to_cuda(scene):
 
 
 def test_out_of_slice_features_raise(scene):
-    """What stays out of the port: the differentiable mode (on either
-    engine). Textured fog, outside the fused step, now renders on the
-    unfused pool."""
+    """Nothing of the render modes stays out of the port now: the
+    differentiable mode renders with either engine flag (it always takes
+    the chunked engine) and carries finite, non-zero gradients to the
+    scene and the environment; textured fog, outside the fused step, renders
+    on the unfused pool."""
     cam = tcam.make_camera(image_width=8, image_height=4, **CAM_KW)
-    env = tenv.make_environment(**ENV_KW)
     for kw in (dict(differentiable=True),
                dict(differentiable=True, wavefront=False)):
         cfg = dataclasses.replace(_cfg(8, 4, 1), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tint.render(scene, cam, env, 0, cfg, device="cpu")
+        albedo = scene.materials.albedo.clone().requires_grad_(True)
+        sky = torch.tensor(1.0, requires_grad=True)
+        env = tenv.make_environment(**ENV_KW)._replace(intensity=sky)
+        sc = scene._replace(materials=scene.materials._replace(albedo=albedo))
+        out, st = tint.render(sc, cam, env, 0, cfg, device="cpu",
+                              with_stats=True)
+        assert st["steps"] == 1 and "engine" not in st
+        grads = torch.autograd.grad(out["beauty"].sum(), (albedo, sky))
+        for g in grads:
+            assert torch.isfinite(g).all() and float(g.abs().max()) > 0
+    env = tenv.make_environment(**ENV_KW)
     b = tscene.SceneBuilder()
     b.geometry.add_sphere((0.0, 0.0, 0.0), 1.0,
                           b.materials.lambertian("m", (0.5, 0.5, 0.5)))
