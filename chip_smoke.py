@@ -96,10 +96,23 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                thresholds; Q2 both denoisers card against CPU; Q3 both
                timed on the 1920x1080 @ 8 spp showcase buffers, with peak
                memory and the U-Net's operation bound;
+ 25. frontend  the progressive session, the CLI and the interactive loop
+               (outputs under build/frontend/): F1 `render` through
+               cli.main, 800x450 @ 32 spp in chunks of 4 with four passes,
+               the counts read around it, the beauty PNG and the AOV means
+               against a one-shot integrator.render, then session and
+               one-shot walls in turns; F2 a 16 spp checkpoint finished by
+               `render --resume` against the uninterrupted sums; F3 a mesh
+               of cuda:0 listed 4 times against one device; F4
+               `interactive` at 400x225 fed a command script (post edit,
+               passes, stats, wire, camera edit, sun, saveall), K4's
+               launches read around it; F5 --check-numerics and the NaN
+               trap; F6 info and --profile;
 then one JSON line of per-kernel numbers (K1 and K4 with the funnel's
 numbers as funnel_*, K1's in the unfused pool as pool_*, K3's window
 variant as window_*, K4's sort_rays numbers and its diff_launches and
-diff_ms on the differentiable path), the nvidia-smi line, and the device
+diff_ms on the differentiable path; session_launches of K1-K3 on F1's
+session frame and K4's wire_launches in F4), the nvidia-smi line, and the device
 JSON line last.
 Takes no arguments and always runs every phase.
 Exits non-zero without a CUDA device, and outside a checkout of the repo.
@@ -2794,6 +2807,371 @@ def phase_denoise() -> None:
                 f"peak memory {peak / 2**30:.3f} GiB above the inputs{extra}")
 
 
+# --- phase 25: the front end (session, CLI, interactive loop) ----------------
+
+FRONT = os.path.join(REPO, "build", "frontend")
+FRONT_SIZE = (800, 450, 32, 4)          # width, height, spp, chunk
+FRONT_PASSES = ("rgb", "albedo", "normals", "z_depth")
+FRONT_SCRIPT = ("set post.exposure 1.5\npass albedo\nstats\npass rgb\n"
+                "wire 2\nset camera.vfov 35\nsun 45 172 12\n"
+                f"saveall {os.path.join(FRONT, 'all')}\nquit\n")
+
+
+class _SessionSpy:
+    """Records, while the front end runs, each RenderSession it drives and
+    the wall (synchronised), segments and pool steps of every chunk's
+    integrator.accumulate_samples call."""
+
+    def __enter__(self):
+        import torch
+
+        from raytracer_project_tpu_torch.ops import integrator
+        from raytracer_project_tpu_torch.utils import session
+
+        self.sessions, self.chunks = [], []
+        self.orig = (integrator.accumulate_samples,
+                     session.RenderSession.render_progressive)
+        acc, prog = self.orig
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, stats = acc(*args, **kw)
+            torch.cuda.synchronize()
+            self.chunks.append((time.perf_counter() - t0, stats["segments"],
+                                stats["steps"]))
+            return out, stats
+
+        def progressive(sess, *args, **kw):
+            self.sessions.append(sess)
+            return prog(sess, *args, **kw)
+
+        integrator.accumulate_samples = timed
+        session.RenderSession.render_progressive = progressive
+        return self
+
+    def __exit__(self, *exc):
+        from raytracer_project_tpu_torch.ops import integrator
+        from raytracer_project_tpu_torch.utils import session
+
+        (integrator.accumulate_samples,
+         session.RenderSession.render_progressive) = self.orig
+
+
+def _front_config():
+    """The config `render` builds for the F1 command line."""
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.ops import integrator
+
+    w, h, spp, _ = FRONT_SIZE
+    return integrator.RenderConfig(env_mode=tenv.PHYSICAL_SUN, width=w,
+                                   height=h, samples_per_pixel=spp,
+                                   max_depth=10)
+
+
+def _front_inputs():
+    """The scene, camera and environment `render --preset showcase` builds."""
+    from raytracer_project_tpu_torch import cli
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+
+    w, h, _, _ = FRONT_SIZE
+    scene, cam_kw = cli._preset("showcase")
+    return (scene.to("cuda"),
+            tcam.make_camera(image_width=w, image_height=h, defocus_angle=0.0,
+                             focus_dist=10.0, **cam_kw),
+            tenv.make_environment())
+
+
+def _timed_session(inputs, cfg, mesh=None):
+    import torch
+
+    from raytracer_project_tpu_torch.utils.session import RenderSession
+
+    sess = RenderSession(*inputs, cfg, key=0, chunk_samples=FRONT_SIZE[3],
+                         mesh=mesh, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.render_progressive(cfg.samples_per_pixel)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, sess
+
+
+def _timed_one_shot(inputs, cfg):
+    import torch
+
+    from raytracer_project_tpu_torch.ops import integrator
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, stats = integrator.render(*inputs, 0, cfg, device="cuda",
+                                   with_stats=True)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out, stats
+
+
+def _front_f1(results: dict):
+    """F1: `render` through cli.main at 800x450 @ 32 spp in chunks of 4 with
+    four passes, against a one-shot integrator.render of the frame."""
+    import numpy as np
+
+    from raytracer_project_tpu_torch import cli
+    from raytracer_project_tpu_torch.ops import post
+    from raytracer_project_tpu_torch.utils import image_io
+    from raytracer_project_tpu_torch.utils.session import to_u8
+
+    w, h, spp, chunk = FRONT_SIZE
+    argv = ["render", "--preset", "showcase", "--width", str(w), "--height",
+            str(h), "--spp", str(spp), "--max-depth", "10", "--chunk",
+            str(chunk), "--passes", ",".join(FRONT_PASSES), "--out", FRONT,
+            "--checkpoint", os.path.join(FRONT, "ck.npz"), "--quiet"]
+    _reset_counters()
+    with _PlainCallCounter() as plain, _SessionSpy() as spy:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        cli_wall = time.perf_counter() - t0
+    launches = _launches(("closest_hit", "decode", "shade_advance",
+                          "shade_advance_features"))
+    check(rc == 0, f"render exited {rc}")
+    sess = spy.sessions[0]
+    walls = [c[0] for c in spy.chunks]
+    log(f"frontend F1: cli.main render {w}x{h}@{spp}spp chunks of {chunk}: "
+        f"{cli_wall:.3f} s in all, {len(walls)} chunks "
+        f"{sum(walls):.3f} s, segments {sum(c[1] for c in spy.chunks)}, "
+        f"steps {sum(c[2] for c in spy.chunks)}, launches {launches}, plain "
+        f"calls {plain.calls}")
+    log("  chunk walls ms: " + ", ".join(f"{t * 1e3:.1f}" for t in walls))
+    check(launches["closest_hit"] > 0 and launches["decode"] > 0
+          and launches["shade_advance_features"] > 0,
+          "F1: a kernel was not launched")
+    check(plain.calls == 0, "F1: a plain version ran during the CUDA render")
+    results["closest_hit"]["session_launches"] = launches["closest_hit"]
+    results["decode"]["session_launches"] = launches["decode"]
+    results["shade_advance_features"]["session_launches"] = launches[
+        "shade_advance_features"]
+    pngs = {}
+    for name in FRONT_PASSES:
+        pngs[name] = image_io.read_png(os.path.join(FRONT,
+                                                    f"render_{name}.png"))
+        check(pngs[name].shape == (h, w, 3), f"F1 {name} PNG shape")
+
+    cfg = _front_config()
+    inputs = _front_inputs()
+    _, one, _ = _timed_one_shot(inputs, cfg)
+    params = sess.post_params
+    pc = post.PostConfig()
+    params = params._replace(exposure=post.auto_exposure(
+        params, post.analyze_framebuffer(one["beauty"]), pc))
+    want = to_u8(post.update_post_processing(one["beauty"], params, pc,
+                                             post.PASS_RGB))
+    over = (np.abs(pngs["rgb"].astype(int) - want.astype(int)).max(-1)
+            > 1).mean()
+    log(f"  beauty PNG vs the one-shot render's: {over:.5f} of pixels over "
+        f"1 LSB (limit 0.01)")
+    check(over <= 0.01, "F1: the session's beauty PNG is off the one-shot's")
+    got = sess.buffers()
+    for name in ("albedo", "normal", "z_depth"):
+        a, b = float(got[name].mean()), float(one[name].mean())
+        rel = abs(a - b) / b
+        log(f"  {name} mean {a:.6f} vs one-shot {b:.6f}: {rel:.2e} relative "
+            f"(limit 3e-4)")
+        check(rel <= 3e-4, f"F1: the {name} AOV is off the one-shot's")
+
+    # Walls in turns: one-shot, session, session, one-shot.
+    order = []
+    for kind in ("one-shot", "session", "session", "one-shot"):
+        if kind == "session":
+            with _SessionSpy() as spy:
+                wall, s = _timed_session(inputs, cfg)
+            segs = s.segments_traced
+            steps = sum(c[2] for c in spy.chunks)
+            walls = [c[0] * 1e3 for c in spy.chunks]
+            extra = (f", chunk walls ms {min(walls):.1f}-{max(walls):.1f} "
+                     f"(mean {sum(walls) / len(walls):.1f})")
+        else:
+            wall, _, st = _timed_one_shot(inputs, cfg)
+            segs, steps, extra = st["segments"], st["steps"], ""
+        order.append((kind, wall))
+        log(f"  {kind}: wall {wall:.4f} s, segments {int(segs)}, steps "
+            f"{steps}, segments/s {segs / wall:.4g}{extra}")
+    sess_w = [t for k, t in order if k == "session"]
+    one_w = [t for k, t in order if k == "one-shot"]
+    log(f"frontend F1: session {min(sess_w):.4f}-{max(sess_w):.4f} s against "
+        f"one-shot {min(one_w):.4f}-{max(one_w):.4f} s: overhead "
+        f"{min(sess_w) - max(one_w):.4f}-{max(sess_w) - min(one_w):.4f} s")
+    return sess, inputs, cfg
+
+
+def _front_f2(sess, inputs, cfg) -> None:
+    """F2: checkpoint at 16 spp, `render --resume` finishes it to 32 in a
+    fresh session; its checkpoint holds the uninterrupted session's sums."""
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch import cli
+    from raytracer_project_tpu_torch.ops import integrator
+    from raytracer_project_tpu_torch.utils.session import RenderSession
+
+    w, h, spp, chunk = FRONT_SIZE
+    half = RenderSession(*inputs, cfg, key=0, chunk_samples=chunk,
+                         device="cuda")
+    half.render_progressive(spp // 2)
+    ck = os.path.join(FRONT, "ck_resume.npz")
+    half.checkpoint(ck)
+    argv = ["render", "--preset", "showcase", "--width", str(w), "--height",
+            str(h), "--spp", str(spp), "--max-depth", "10", "--chunk",
+            str(chunk), "--passes", "rgb", "--out",
+            os.path.join(FRONT, "resume"), "--checkpoint", ck, "--resume",
+            "--quiet"]
+    with _SessionSpy() as spy:
+        check(cli.main(argv) == 0, "F2: render --resume failed")
+    resumed = spy.sessions[0]
+    check(len(spy.chunks) == (spp // 2) // chunk,
+          f"F2: {len(spy.chunks)} chunks after the resume")
+    check(any("Restored 16 samples" in e for e in resumed.log.entries),
+          "F2: the checkpoint was not restored")
+    with np.load(ck) as data:
+        check(int(data["samples_done"]) == spp, "F2: samples_done")
+        got = integrator.SampleBuffers(*(torch.as_tensor(data[f])
+                                         for f in integrator.SampleBuffers._fields))
+    ref = integrator.SampleBuffers(*(x.cpu() for x in sess.acc))
+    _sums_agree("frontend F2 resumed at 16 spp vs uninterrupted", got, ref)
+
+
+def _front_f3(sess, inputs, cfg) -> None:
+    """F3: a session over a mesh of cuda:0 listed 4 times against the
+    single-device session."""
+    import torch
+
+    one_wall, _ = _timed_session(inputs, cfg)
+    mesh_wall, meshed = _timed_session(inputs, cfg,
+                                       mesh=[torch.device("cuda", 0)] * 4)
+    log(f"frontend F3: mesh of 4 x cuda:0 session {mesh_wall:.4f} s, "
+        f"single-device session {one_wall:.4f} s")
+    _sums_agree("frontend F3 mesh vs single device", meshed.acc, sess.acc)
+
+
+def _front_f4(results: dict) -> None:
+    """F4: `interactive` at 400x225 with a preview PNG, fed a command
+    script through InteractiveLoop.run."""
+    import io
+
+    from raytracer_project_tpu_torch import cli
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+    from raytracer_project_tpu_torch.utils import image_io
+    from raytracer_project_tpu_torch.utils.interactive import InteractiveLoop
+
+    preview = os.path.join(FRONT, "preview.png")
+    args = cli._build_parser().parse_args(["interactive", "--watch", preview])
+    loop = cli.build_interactive(args)
+    loop.log.echo = False
+    check((loop.config.width, loop.config.height) == (400, 225),
+          "F4: interactive's default size")
+    loop.tick()
+    loop.tick()
+    record, commands = [], []
+
+    def tick():
+        notes = InteractiveLoop.tick(loop)
+        record.append((commands[-1] if commands else "",
+                       loop.session.samples_done, id(loop.session), notes))
+        return notes
+
+    def handle(line):
+        commands.append(line.strip())
+        return InteractiveLoop.handle_command(loop, line)
+
+    loop.tick, loop.handle_command = tick, handle
+    out = io.StringIO()
+    k1.closest_hit_feats.launches = 0
+    t0 = time.perf_counter()
+    loop.run(stdin=io.StringIO(FRONT_SCRIPT), max_ticks=40, out=out)
+    wall = time.perf_counter() - t0
+    wire = k1.closest_hit_feats.launches
+    log(f"frontend F4: {len(record)} ticks in {wall:.3f} s, K4 launches "
+        f"{wire}; samples_done after each command: "
+        + ", ".join(f"{c!r} {n}" for c, n, _, _ in record))
+    ticks = {c: i for i, (c, _, _, _) in enumerate(record)}
+    i = ticks["set post.exposure 1.5"]
+    check(record[i][2] == record[i - 1][2]
+          and record[i][1] == record[i - 1][1] + 2,
+          f"F4: the post edit did not keep samples_done ({record[i][1]})")
+    j = ticks["set camera.vfov 35"]
+    check(record[j][2] != record[j - 1][2] and record[j][1] == 2,
+          f"F4: the camera edit did not restart ({record[j][1]} samples)")
+    text = out.getvalue()
+    check("[Config] sun synced" in text, "F4: the sun line did not sync")
+    check(image_io.read_png(preview).shape == (225, 400, 3),
+          "F4: the preview PNG")
+    check(wire > 0, "F4: wire did not launch K4")
+    check(not loop.running, "F4: quit did not stop the loop")
+    for name in ("rgb", "albedo", "normals", "reflections", "refractions",
+                 "z_depth"):
+        check(os.path.exists(os.path.join(FRONT, "all", f"render_{name}.png")),
+              f"F4: saveall did not write {name}")
+    results["closest_hit_feats"]["wire_launches"] = wire
+
+
+def _front_f5_f6() -> None:
+    """F5: --check-numerics on a 16x9 frame is clean, and the trap raises
+    on a NaN on the card. F6: info, and --profile writes a trace."""
+    import contextlib
+    import io
+    import torch
+
+    from raytracer_project_tpu_torch import cli
+    from raytracer_project_tpu_torch.utils import debug
+
+    argv = ["render", "--width", "16", "--height", "9", "--spp", "1",
+            "--out", os.path.join(FRONT, "numerics"), "--check-numerics"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(argv) == 0, "F5: --check-numerics render failed")
+    check("check-numerics pass clean" in buf.getvalue(),
+          "F5: the probe was not clean")
+    x = torch.linspace(0.0, 4.0, 9, device="cuda")
+    try:
+        debug.checked(lambda v: torch.where(v < 2.0, 0.0,
+                                            torch.sqrt(v - 2.0)))(x)
+        raise AssertionError("F5: the trap did not raise on a NaN")
+    except FloatingPointError as e:
+        check("aten.sqrt" in str(e), f"F5: the trap named {e}")
+        log(f"frontend F5: --check-numerics clean; trap: {e}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(["info"]) == 0, "F6: info failed")
+    info = json.loads(buf.getvalue())
+    check(info["cuda_available"] and info["card"], "F6: info saw no card")
+    check("jax" not in buf.getvalue().lower(), "F6: info names JAX")
+    prof = os.path.join(FRONT, "profile")
+    argv = ["render", "--width", "64", "--height", "36", "--spp", "2",
+            "--chunk", "2", "--out", prof, "--profile", prof, "--quiet"]
+    check(cli.main(argv) == 0, "F6: --profile render failed")
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(ev.get("cat") == "kernel" for ev in events)
+    check(kernels > 0, "F6: the trace holds no CUDA kernel")
+    log(f"frontend F6: info card {info['card']!r}; trace of {len(events)} "
+        f"events, {kernels} CUDA kernels")
+
+
+def phase_frontend(results: dict) -> None:
+    """F1-F6: the progressive session, the CLI and the interactive loop on
+    the card (outputs under build/frontend/)."""
+    import shutil
+
+    shutil.rmtree(FRONT, ignore_errors=True)
+    os.makedirs(FRONT)
+    t0 = time.perf_counter()
+    sess, inputs, cfg = _front_f1(results)
+    _front_f2(sess, inputs, cfg)
+    _front_f3(sess, inputs, cfg)
+    _front_f4(results)
+    _front_f5_f6()
+    log(f"frontend: F1-F6 in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2840,6 +3218,7 @@ def main() -> int:
     phase_post(phase_two_process())
     phase_diff(results)
     phase_denoise()
+    phase_frontend(results)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,7 +74,8 @@ class Key(NamedTuple):
 
 def _threefry2x32(k0: int, k1: int, x0: int, x1: int):
     """Threefry-2x32, 20 rounds, of one counter pair (x0, x1) under key
-    (k0, k1): the block function of the reference's PRNG keys."""
+    (k0, k1): the block function of the reference's PRNG keys. Every
+    argument may also be an int64 tensor of u32 values (elementwise)."""
     def rotl(v, r):
         return ((v << r) | (v >> (32 - r))) & MASK32
 
@@ -94,6 +95,37 @@ def fold_in(key: Key, data: int) -> Key:
     """jax.random.fold_in(key, data) of a threefry key, bit for bit: the
     block function of (0, data) under the key."""
     return Key(*_threefry2x32(key.hi, key.lo, 0, int(data) & MASK32))
+
+
+def _uniform2_threefry(k0, k1):
+    """jax.random.uniform(key, (2,)) of per-lane keys (k0, k1), bit for bit:
+    bits i = y0 ^ y1 of the block of (0, i), mantissa-filled floats in
+    [0, 1). Returns two f32 tensors."""
+    out = []
+    for i in range(2):
+        y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(k0),
+                               torch.full_like(k0, i))
+        bits = ((y0 ^ y1) >> 9) | 0x3F800000
+        out.append(bits.to(torch.int32).view(torch.float32) - 1.0)
+    return out
+
+
+def camera_draws_threefry(key: Key, lane_ids):
+    """The reference's per-lane-key camera draws (its rng.per_lane_keys,
+    split_each(2), square_jitter_each and in_unit_disk_each, which its BVH
+    debug view takes), bit for bit up to cos/sin: ((jitter x, jitter y) in
+    [-0.5, 0.5), unit-disk point (r0, r1)) per lane id."""
+    ids = u32(lane_ids)
+    zero = torch.zeros_like(ids)
+    k0, k1 = _threefry2x32(key.hi, key.lo, zero, ids)      # fold_in
+    # split(k, 2): key i is the block of (0, i) under k.
+    jk = _threefry2x32(k0, k1, zero, zero)
+    dk = _threefry2x32(k0, k1, zero, zero + 1)
+    jx, jy = (u - 0.5 for u in _uniform2_threefry(*jk))
+    u0, u1 = _uniform2_threefry(*dk)
+    r = torch.sqrt(u0)
+    theta = TWO_PI * u1
+    return (jx, jy), (r * torch.cos(theta), r * torch.sin(theta))
 
 
 def u32(x) -> torch.Tensor:

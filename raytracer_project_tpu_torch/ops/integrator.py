@@ -258,12 +258,11 @@ _TARGET_LANES = 400_000
 
 
 def _accumulate_chunked(scene, cam, env, seed: int, config: RenderConfig,
-                        pixel_ids, sample_offset: int,
-                        stats: dict) -> SampleBuffers:
+                        pixel_ids, sample_offset: int, stats: dict,
+                        aux: int) -> SampleBuffers:
     n = pixel_ids.shape[0]
     dev = pixel_ids.device
     spp = config.samples_per_pixel
-    aux = min(config.aux_samples, spp)
     batch = config.samples_per_batch or max(1, _TARGET_LANES // max(n, 1))
     batch = min(batch, spp)
     lane_pix = pixel_ids.repeat(batch)
@@ -291,7 +290,8 @@ def _accumulate_chunked(scene, cam, env, seed: int, config: RenderConfig,
 def accumulate_samples(scene, cam, env, seed: int, config: RenderConfig,
                        pixel_ids=None, sample_offset: int = 0,
                        with_stats: bool = False, pixel_offset: int = 0,
-                       n_pixels_local: int | None = None):
+                       n_pixels_local: int | None = None,
+                       aux: int | None = None):
     """Sums (not averages) of `samples_per_pixel` samples per pixel from
     `sample_offset` on, on the scene's device, so progressive renders and
     sharded renders keep accumulating (reference accumulate_samples,
@@ -307,6 +307,12 @@ def accumulate_samples(scene, cam, env, seed: int, config: RenderConfig,
     with_stats also returns {"segments", "steps"}: path segments traced,
     and pool steps (with "engine": "fused" | "pool") or chunks (chunked).
 
+    aux is the AOV budget: the AOVs sum the samples whose absolute id is
+    below it. None means this call's min(aux_samples, samples_per_pixel),
+    the reference's per-call budget. A progressive render passes the whole
+    render's budget, so that every chunk counts its AOV samples
+    (utils/session.py).
+
     differentiable=True takes the chunked engine whatever `wavefront` says
     (the pools' kernels are not differentiable, in either package), and
     the sums carry autograd gradients; without it, inputs that require
@@ -314,13 +320,15 @@ def accumulate_samples(scene, cam, env, seed: int, config: RenderConfig,
     _check_grad(scene, cam, env, config)
     dev = scene.spheres.center.device
     cam, env = cam.to(dev), env.to(dev)
+    if aux is None:
+        aux = min(config.aux_samples, config.samples_per_pixel)
     if config.wavefront and not config.differentiable:
         from . import wavefront
 
         return wavefront.render_pool(
             scene, cam, env, seed, config, pixel_ids, sample_offset,
             with_stats=with_stats, pixel_offset=pixel_offset,
-            n_pixels_local=n_pixels_local)
+            n_pixels_local=n_pixels_local, aux=aux)
     if pixel_ids is not None and n_pixels_local is not None:
         raise ValueError("a pixel window takes pixel_ids=None")
     if pixel_ids is None:
@@ -333,7 +341,7 @@ def accumulate_samples(scene, cam, env, seed: int, config: RenderConfig,
     pixel_ids = torch.as_tensor(pixel_ids).to(dev, torch.int64)
     stats = {"segments": 0, "steps": 0}
     out = _accumulate_chunked(scene, cam, env, seed, config, pixel_ids,
-                              sample_offset, stats)
+                              sample_offset, stats, aux)
     return (out, stats) if with_stats else out
 
 
@@ -351,15 +359,14 @@ def finalize_buffers(acc: SampleBuffers, config: RenderConfig,
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device of an entry point: None means "cuda", and raises when no
-    CUDA device is present (there is no fallback to the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the port runs on the card by default and no CUDA device is "
-                "present; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """The device of an entry point: None means "cuda". A CUDA device
+    raises when none is present (there is no fallback to the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs on the card by default and no CUDA device is "
+            "present; pass device='cpu' to run on the CPU")
+    return device
 
 
 def render(scene, cam, env, seed: int, config: RenderConfig, *,

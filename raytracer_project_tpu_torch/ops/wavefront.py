@@ -111,20 +111,21 @@ def _volumes_soa(volumes, o, d, hit, rec, lr):
 
 
 def render_unfused(scene, cam, env, seed: int, config, pixel_ids,
-                   sample_offset: int = 0, with_stats: bool = False):
+                   sample_offset: int = 0, with_stats: bool = False, *,
+                   aux: int):
     """The unfused pool (reference make_pool + render_pool's loop,
     wavefront.py:206-468, 577-589): per-pixel sums (SampleBuffers, each
     f32[n, 3]) of the n pixels pixel_ids (i64[n] global ids, on the
     scene's device) over config.samples_per_pixel samples from
     sample_offset on. config.sort_lanes re-sorts the lanes after every
-    step (_coherence_order). with_stats also returns {"segments", "steps"}."""
+    step (_coherence_order). aux: the AOV budget (absolute sample ids below
+    it count). with_stats also returns {"segments", "steps"}."""
     from .integrator import SampleBuffers
 
     dev = scene.spheres.center.device
     cam, env = cam.to(dev), env.to(dev)
     n = pixel_ids.shape[0]
     spp = config.samples_per_pixel
-    aux = min(config.aux_samples, spp)
     want_spec = config.use_reflection or config.use_refraction
     n_beauty = n * spp
     total_work = n_beauty * (2 if want_spec else 1)
@@ -295,7 +296,8 @@ def _is_identity(pixel_ids, n_pixels: int) -> bool:
 
 def render_pool(scene, cam, env, seed: int, config, pixel_ids=None,
                 sample_offset: int = 0, with_stats: bool = False,
-                pixel_offset: int = 0, n_pixels_local: int | None = None):
+                pixel_offset: int = 0, n_pixels_local: int | None = None,
+                aux: int | None = None):
     """Per-pixel sums (integrator.SampleBuffers) through a pool engine.
 
     pixel_ids None is the full frame or, with n_pixels_local, the identity
@@ -306,19 +308,23 @@ def render_pool(scene, cam, env, seed: int, config, pixel_ids=None,
     Identity frames and windows take the fused pool while it covers the
     render (fused_step.fused_spp_chunk > 0) and RAYTRACER_TPU_NO_FUSED is
     unset; the rest take the unfused pool. Every fused sample chunk counts
-    its AOV samples against the whole render's budget min(aux_samples,
-    spp): a chunk's own spp would leave the later chunks' uncounted.
+    its AOV samples against the budget `aux` (absolute sample ids below it
+    count; None: this call's min(aux_samples, spp)), so the chunks
+    together count the samples of one call.
 
     with_stats also returns {"segments", "steps", "engine"}; engine is
     "fused" or "pool"."""
     if pixel_ids is not None and n_pixels_local is not None:
         raise ValueError("a pixel window takes pixel_ids=None")
+    if aux is None:
+        aux = min(config.aux_samples, config.samples_per_pixel)
     identity = pixel_ids is None or _is_identity(pixel_ids, config.n_pixels)
     no_fused = bool(os.environ.get("RAYTRACER_TPU_NO_FUSED"))
     chunk = fused_step.fused_spp_chunk(scene, config, env, n_pixels_local)
     if identity and not no_fused and chunk > 0:
         out, stats = _render_fused(scene, cam, env, seed, config, chunk,
-                                   sample_offset, pixel_offset, n_pixels_local)
+                                   sample_offset, pixel_offset, n_pixels_local,
+                                   aux)
         stats["engine"] = "fused"
         return (out, stats) if with_stats else out
     dev = scene.spheres.center.device
@@ -331,15 +337,14 @@ def render_pool(scene, cam, env, seed: int, config, pixel_ids=None,
                 max=config.n_pixels - 1)
     pixel_ids = torch.as_tensor(pixel_ids).to(dev, torch.int64)
     out, stats = render_unfused(scene, cam, env, seed, config, pixel_ids,
-                                sample_offset, with_stats=True)
+                                sample_offset, with_stats=True, aux=aux)
     stats["engine"] = "pool"
     return (out, stats) if with_stats else out
 
 
 def _render_fused(scene, cam, env, seed, config, chunk, sample_offset,
-                  pixel_offset, n_pixels_local):
+                  pixel_offset, n_pixels_local, aux):
     spp = config.samples_per_pixel
-    aux = min(config.aux_samples, spp)
     out = None
     segments = steps = 0
     for off in range(0, spp, chunk):

@@ -51,7 +51,8 @@ def _shard_context(dev, streams: dict):
 
 
 def sharded_accumulate(scene, cam, env, seed: int, config, ids_padded,
-                       sample_offset: int = 0, *, mesh, with_stats: bool = False):
+                       sample_offset: int = 0, *, mesh, with_stats: bool = False,
+                       aux: int | None = None):
     """integrator.accumulate_samples with the pixels split over `mesh`:
     per-pixel sums f32[len(ids_padded), 3] on mesh[0].
 
@@ -60,7 +61,7 @@ def sharded_accumulate(scene, cam, env, seed: int, config, ids_padded,
     window (pixel_offset = shard * n_local), the fused pool's route; any
     other id list renders each shard's slice as explicit pixel ids.
     with_stats also returns {"segments": summed over shards, "steps": the
-    most of any shard}."""
+    most of any shard}. aux: accumulate_samples' AOV budget."""
     n_shards = len(mesh)
     ids = np.asarray(torch.as_tensor(ids_padded).cpu())
     if ids.shape[0] % n_shards:
@@ -87,7 +88,7 @@ def sharded_accumulate(scene, cam, env, seed: int, config, ids_padded,
                                       device=dev)
             buf, st = integrator.accumulate_samples(
                 sc, cm, en, seed, config, pix, sample_offset, with_stats=True,
-                **kw)
+                aux=aux, **kw)
         parts.append(buf)
         segments += st["segments"]
         steps = max(steps, st["steps"])
