@@ -41,20 +41,26 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                profile, and the albedo AOV against a first-hit chunked
                render of the same frame;
  10. probes    the twins of the reference's kernel probes (tools/): P1,
-               K1's scan in four ablations on 262,144 rays (the SASS of
-               each variant checked for the work it keeps, full against
-               K1 bit for bit); P2 and P4, the one-hot row fetch in six
-               layouts; P3, the decode stages d0-d2 and d3 (= K2) on K1's
-               hits of the showcase camera rays. Each variant runs through
-               its entry with the counts read around it, is held against
-               its plain version on the card, and is timed with its bound;
+               K1's own compact-row scan in four ablations on 262,144
+               rays, beside its dense yardstick (the first port's probe;
+               the SASS and registers of each variant logged beside K1's
+               and checked for the work it keeps; full and nocull against
+               K1 bit for bit), then K1's time split by P1 on the main
+               path's bounce rays, the dense scan's beside it; P2 and P4,
+               the one-hot row fetch in six layouts; P3, the decode
+               stages d0-d2 and d3 (= K2) on K1's hits of the showcase
+               camera rays. Each variant runs through its entry with the
+               counts read around it, is held against its plain version
+               on the card, and is timed with its bound; last an empty
+               kernel timed the same way, the launch floor under P2-P4;
  11. scenes smoke  the goldens past the showcase (Shirley, the foggy
                Cornell box, the HDRI scene) through integrator.render on
                both engines against the reference's CPU goldens;
  12. bvh traverse  the BVH traversal against the brute-force oracle on
                the card (bvh_stress_scene(9000), 512 funnel camera rays);
  13. funnel kernels  K1 and K4 on the funnel's (25,091 primitives) bounce
-               rays against their plain versions, timed, with their bounds;
+               rays against their plain versions, timed, with their bounds,
+               and K1's time split by P1 on those rays;
  14. baseline configs  the fused pool at the published sizes: Shirley
                400x225 @ 16 spp, Cornell 512x512 @ 64 spp, the HDRI scene
                at 1920x1080 @ 8 spp, and the funnel at 800x450 @ 32 spp,
@@ -112,8 +118,9 @@ then one JSON line of per-kernel numbers (K1 and K4 with the funnel's
 numbers as funnel_*, K1's in the unfused pool as pool_*, K3's window
 variant as window_*, K4's sort_rays numbers and its diff_launches and
 diff_ms on the differentiable path; session_launches of K1-K3 on F1's
-session frame and K4's wire_launches in F4), the nvidia-smi line, and the device
-JSON line last.
+session frame and K4's wire_launches in F4; K1's split by P1 on both bounce
+sets as split; P1's dense yardstick as P1_dense.*; the launch floor with P2-P4),
+the nvidia-smi line, and the device JSON line last.
 Takes no arguments and always runs every phase.
 Exits non-zero without a CUDA device, and outside a checkout of the repo.
 """
@@ -377,10 +384,10 @@ def k1_operations(od, t_hit, tab, dots=True, epilogues=True, cull=True,
     the dense tables tab = (coeffs, `width`-wide AABBs, counts): for each
     ray, each `width`-primitive tile it reaches no later than its closest
     hit, and in each such tile 2 per nonzero coefficient (one FMA of the
-    dot) plus one epilogue per primitive. The K1 and K4 bounds count it at
-    the tables' finest AABBs (`fine_tables`, width MM_FINE = 128); P1,
-    whose kernel culls 512-wide chunks, at 512, and its ablations count
-    only the dots or only the epilogues."""
+    dot) plus one epilogue per primitive. The K1 and K4 bounds, and P1's,
+    count it at the tables' finest AABBs (`fine_tables`, width MM_FINE =
+    128); P1's dense yardstick, whose kernel culls 512-wide chunks, at
+    512; P1's ablations count only the dots or only the epilogues."""
     import torch
 
     coeffs, bounds, counts = tab
@@ -412,12 +419,16 @@ def k1_structural_operations(od, t_hit, scan) -> int:
         lambda i, c0, w: (2 * slots[i] + EPILOGUE_OPS[i]) * w)
 
 
-def p1_operations(od, t_full, tab, variant: str) -> int:
+def p1_operations(od, t_full, tab, variant: str, width: int) -> int:
     """f32 operations of P1 `variant` on the rays od with every ray culled
-    on its own: full as K1 (its closest hit t_full); nocull every chunk;
-    nodots the epilogues of every chunk a ray reaches (its best t stays
-    T_MAX); cheapepi the dots of the chunks a ray reaches before its own
-    running minimum of raw group-0 dots, chunk by chunk in scan order."""
+    on its own over the `width`-primitive tiles of tab = (the dense
+    coefficient tables, their `width`-wide AABBs, counts): full as K1 (its
+    closest hit t_full); nocull every tile; nodots the epilogues of every
+    tile a ray reaches (its best t stays T_MAX); cheapepi the dots of the
+    tiles a ray reaches before its own running minimum of raw group-0
+    dots, tile by tile in scan order. The compact-scan probe counts at the
+    128-wide tiles it culls on (`fine_tables`, K1's yardstick), the dense
+    yardstick at its 512-wide chunks."""
     import torch
 
     from raytracer_project_tpu_torch.ops import intersect
@@ -425,15 +436,16 @@ def p1_operations(od, t_full, tab, variant: str) -> int:
     if variant != "cheapepi":
         return k1_operations(od, t_full if variant == "full" else
                              torch.full_like(t_full, 1e30), tab,
-                             dots=variant != "nodots", cull=variant != "nocull")
+                             dots=variant != "nodots", cull=variant != "nocull",
+                             width=width)
     feats = intersect.ray_features((od[0], od[1], od[2]), (od[3], od[4], od[5]))
     o, d = od[:3], od[3:]
     inv_d = 1.0 / torch.where(d.abs() < 1e-30, torch.full_like(d, 1e-30), d)
     best = torch.full_like(t_full, 1e30)
     total = 0
     for coeff, bnd, n in zip(*tab):
-        for c, c0 in enumerate(range(0, n, 512)):
-            block = coeff[:, :, c0:min(c0 + 512, n)]
+        for c, c0 in enumerate(range(0, n, width)):
+            block = coeff[:, :, c0:min(c0 + width, n)]
             lo, hi = bnd[c, :3, None], bnd[c, 3:, None]
             t0, t1 = (lo - o) * inv_d, (hi - o) * inv_d
             tn = torch.minimum(t0, t1).amax(0)
@@ -752,6 +764,7 @@ def _counters():
             "shade_advance_features": (fs.shade_advance, "features_launches"),
             "closest_hit_feats": (k1.closest_hit_feats, "launches"),
             "ablate": (pa.ablate, "launches"),
+            "ablate_dense": (pa.ablate_dense, "launches"),
             "onehot_fetch": (po.onehot_fetch, "launches"),
             "decode_stage": (pd.decode_stage, "launches")}
 
@@ -1254,70 +1267,175 @@ def sass_opcodes(source: str) -> dict:
     return counts
 
 
-def _probe_p1(results: dict) -> None:
-    """P1 on the probe's 262,144 rays, each variant through its entry
-    (`run`) with the counts read around it, against its plain version
-    grouped per warp, timed, with its operation bound; full against K1."""
-    import torch
+def ptxas_resources(source: str) -> dict:
+    """Registers and spill-store bytes of each kernel of csrc/<source>.cu
+    from its build log (nvcc -Xptxas -v): mangled name -> (registers,
+    spill bytes)."""
+    import re
 
+    from raytracer_project_tpu_torch import kernels
+
+    out, cur = {}, None
+    for line in (kernels.BUILD_DIR / f"{source}.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [0, 0]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur:
+            out[cur][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _kernel_code(source: str, tag: str) -> dict:
+    """{mangled name: (SASS opcode counts, (registers, spill bytes))} of the
+    kernels of csrc/<source>.cu whose name holds `tag`."""
+    res = ptxas_resources(source)
+    return {name: (ops, res.get(name, (None, None)))
+            for name, ops in sass_opcodes(source).items() if tag in name}
+
+
+def _log_code(label: str, ops: dict, res) -> None:
+    log(f"  SASS {label}: {sum(ops.values())} instructions, {res[0]} "
+        f"registers, {res[1]} B spilled; FFMA {ops.get('FFMA', 0)}, MUFU "
+        f"{ops.get('MUFU', 0)}, FSETP {ops.get('FSETP', 0)}, LDGSTS "
+        f"{ops.get('LDGSTS', 0)}, LDS {ops.get('LDS', 0)}, BAR "
+        f"{ops.get('BAR', 0)}, VOTE {ops.get('VOTE', 0)}")
+
+
+def _p1_sass() -> None:
+    """The SASS and registers of P1's variants: the compact-scan probe's
+    four instantiations of tile_scan_kernel beside K1's and K4's (the same
+    template at SCAN_FULL, from csrc/closest_hit.cu), and the dense
+    yardstick's. The work a variant takes away is gone, and only that
+    work: cheapepi keeps the dots (FFMA), nodots the epilogues (MUFU: the
+    sqrt and the reciprocals) and drops the row copies (LDGSTS:
+    cp.async)."""
     from raytracer_project_tpu_torch.ops import closest_hit as k1
     from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
 
-    dev = torch.device("cuda")
-    scene = _showcase(8, 8)[0]
-    tab = pa.scene_tables(scene)
-    od = pa.make_rays(pa.P, 0, dev)
-    # The SASS of each variant: the work the probe takes away is gone, and
-    # only that work (FFMA: the dots; MUFU: the epilogues' sqrt/rcp).
-    sass = {name: ops for name, ops in sass_opcodes("probe_a1_ablate").items()
-            if "ablate_kernel" in name}
-    ops = {v: next(o for name, o in sass.items() if f"ILi{i}E" in name)
-           for i, v in enumerate(pa.VARIANTS)}
-    for v, o in ops.items():
-        log(f"  SASS ablate_kernel<{v}>: {sum(o.values())} instructions, "
-            f"FFMA {o.get('FFMA', 0)}, MUFU {o.get('MUFU', 0)}, "
-            f"FSETP {o.get('FSETP', 0)}")
-    # 16-term dots for G = 2 + 4 + 6 outputs: 192 FMAs per primitive.
-    check(ops["cheapepi"].get("FFMA", 0) >= 192, "cheapepi lost its dots")
-    check(ops["nodots"].get("MUFU", 0) >= ops["full"].get("MUFU", 0),
+    for label, tag in (("K1", "ILb1ELi0ELb0EE"), ("K4", "ILb0ELi0ELb0EE")):
+        found = _kernel_code("closest_hit", "tile_scan_kernel" + tag)
+        check(len(found) == 1, f"{label}'s tile_scan_kernel: {list(found)}")
+        _log_code(f"{label} tile_scan_kernel<SCAN_FULL>",
+                  *next(iter(found.values())))
+    code = _kernel_code("probe_a1_ablate", "tile_scan_kernel")
+    dense = _kernel_code("probe_a1_ablate", "ablate_kernel")
+    new_ops, dense_ops = {}, {}
+    for i, v in enumerate(pa.VARIANTS):
+        name = next(n for n in code if f"ILb1ELi{i}ELb1EE" in n)
+        new_ops[v] = code[name][0]
+        _log_code(f"P1 tile_scan_kernel<{v}>", *code[name])
+        name = next(n for n in dense if f"ILi{i}E" in n)
+        dense_ops[v] = dense[name][0]
+        _log_code(f"P1 dense ablate_kernel<{v}>", *dense[name])
+    # The compact dots: 9 + 19 + 21 structural FMAs, unrolled once per
+    # table's row loop, and the 7 FMAs of ray features 6-10 that they read
+    # (csrc/closest_hit.cuh ray_features); the dense ones 16 per output.
+    dots = sum(map(len, (k for s in k1.SLOTS for k in s)))
+    check(new_ops["cheapepi"].get("FFMA", 0) >= dots + 7,
+          "cheapepi lost its dots")
+    check(new_ops["nodots"].get("MUFU", 0) >= new_ops["full"].get("MUFU", 0),
           "nodots lost its epilogues")
-    nbytes = pa.P * (6 * 4 + 3 * 4) + sum(
-        4 * (c.numel() + b.numel()) for c, b in zip(*tab[:2]))
+    check(new_ops["nodots"].get("FFMA", 0) < new_ops["full"].get("FFMA", 0)
+          and new_ops["nodots"].get("LDGSTS", 0) == 0
+          and new_ops["full"].get("LDGSTS", 0) > 0, "nodots kept its dots")
+    check(dense_ops["cheapepi"].get("FFMA", 0) >= 192,
+          "dense cheapepi lost its dots")
+    check(dense_ops["nodots"].get("MUFU", 0) >= dense_ops["full"].get("MUFU", 0),
+          "dense nodots lost its epilogues")
+
+
+def _p1_rows(results: dict, key: str, od, entry, fn, plain, counter, nbytes,
+             flops, t_k1) -> None:
+    """One of P1's two kernels on the probe's rays: each variant through its
+    entry with the counts read around it, against its plain version, full
+    and nocull against K1's t (t_k1) bit for bit, timed, with its bound."""
+    import torch
+
+    from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
+
     for v in pa.VARIANTS:
         _reset_counters()
-        entry = pa.run(v, od, *tab)
-        launches = pa.ablate.launches
-        check(launches > 0, f"P1 {v}: not launched")
-        t = pa.ablate(od, 0.0, *tab, v)[0]
-        ref = pa.ablate_plain(od, 0.0, *tab, v, pa.WARP)[0]
+        entry(v)
+        launches = counter.launches
+        check(launches > 0, f"{key} {v}: not launched")
+        t = fn(v)[0]
+        ref = plain(v)[0]
         torch.cuda.synchronize()
         stats = pa.compare(v, t, ref)
-        log(f"  P1 {v} vs plain: {stats}")
-        check(stats["ok"], f"P1 {v} disagrees with its plain version")
-        if v == "full":
-            t_full = t
-            tk = k1.closest_hit(od, 0.0, k1.scan_tables(scene))[0]
-            lanes = torch.nonzero(t != tk).flatten()
+        log(f"  {key} {v} vs plain: {stats}")
+        check(stats["ok"], f"{key} {v} disagrees with its plain version")
+        if v in ("full", "nocull"):
+            lanes = torch.nonzero(t.view(torch.int32)
+                                  != t_k1.view(torch.int32)).flatten()
             for i in lanes[:8].tolist():
-                log(f"    lane {i}: P1 full t {float(t[i]):.9g} K1 t "
-                    f"{float(tk[i]):.9g}")
-            log(f"  P1 full vs K1 at tmin 0: {lanes.numel()} lanes differ")
-            check(lanes.numel() == 0, "P1 full differs from K1")
-        ms = time_ms(f"P1 {v}", lambda: pa.ablate(od, 0.0, *tab, v))
-        plain_ms = time_ms(f"P1 {v} plain", lambda: pa.ablate_plain(
-            od, 0.0, *tab, v, pa.WARP), n=3, rounds=3)
-        flops = p1_operations(od, t_full, tab, v)
-        bound, by = bound_ms(nbytes, flops)
-        log(f"  P1.{v}: {ms:.4f} ms/launch (entry {entry['ms']:.4f}), plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
-            f"{flops / pa.P:.0f} operations per ray), launches {launches}")
-        check(ms >= bound, f"P1 {v} runs below its bound: work was dropped")
-        results[f"P1.{v}"] = dict(
-            name=f"P1.{v}", route="cuda",
+                log(f"    lane {i}: {key} {v} t {float(t[i]):.9g} K1 t "
+                    f"{float(t_k1[i]):.9g}")
+            log(f"  {key} {v} vs K1 at tmin 0: {lanes.numel()} lanes differ")
+            check(lanes.numel() == 0, f"{key} {v} differs from K1")
+        ms = time_ms(f"{key} {v}", lambda: fn(v))
+        plain_ms = time_ms(f"{key} {v} plain", lambda: plain(v), n=3, rounds=3)
+        ops = flops(v)
+        bound, by = bound_ms(nbytes(v), ops)
+        log(f"  {key}.{v}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}, {ops / od.shape[1]:.0f} operations "
+            f"per ray), {ms / bound:.1f}x the bound, launches {launches}")
+        check(ms >= bound, f"{key} {v} runs below its bound: work was dropped")
+        results[f"{key}.{v}"] = dict(
+            name=f"{key}.{v}", route="cuda",
             source="raytracer_project_tpu_torch/csrc/probe_a1_ablate.cu",
             replaces="tools/probe_a1_ablate.py:43", launches=launches,
             max_abs_err=stats["max_abs_err"], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _probe_p1(results: dict) -> None:
+    """P1 on the probe's 262,144 rays: the compact-scan probe (K1's own
+    scan, P1.*) and its dense yardstick (P1_dense.*), each variant through
+    its entry (`run`, `run_dense`) with the counts read around it, against
+    its plain version (the card's grouping: warps over 128-wide tiles; the
+    yardstick's: warps over 512-wide chunks), full and nocull against K1
+    bit for bit (the dense scan's t is the compact one's on finite
+    features), timed, with its operation bound."""
+    import torch
+
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+    from raytracer_project_tpu_torch.ops import intersect
+    from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
+
+    dev = torch.device("cuda")
+    scene = _showcase(8, 8)[0]
+    tables = k1.scan_tables(scene)
+    dense = pa.scene_tables(scene)
+    fine = fine_tables(scene, tables)
+    od = pa.make_rays(pa.P, 0, dev)
+    _p1_sass()
+    t_k1 = k1.closest_hit(od, 0.0, tables)[0]
+    t_full = pa.ablate(od, 0.0, tables, "full")[0]
+    rows = sum(4 * (r.numel() + b.numel())
+               for r, b in zip(tables.rows, tables.bounds))
+    _p1_rows(results, "P1", od,
+             lambda v: pa.run(v, od, tables),
+             lambda v: pa.ablate(od, 0.0, tables, v),
+             lambda v: pa.ablate_plain(od, 0.0, tables.coeffs, tables.bounds,
+                                       tables.counts, v),
+             pa.ablate,
+             lambda v: pa.P * (6 * 4 + 3 * 4) + (0 if v == "nodots" else rows),
+             lambda v: p1_operations(od, t_full, fine, v, intersect.MM_FINE),
+             t_k1)
+    dense_bytes = pa.P * (6 * 4 + 3 * 4) + sum(
+        4 * (c.numel() + b.numel()) for c, b in zip(*dense[:2]))
+    _p1_rows(results, "P1_dense", od,
+             lambda v: pa.run_dense(v, od, *dense),
+             lambda v: pa.ablate_dense(od, 0.0, *dense, v),
+             lambda v: pa.ablate_plain(od, 0.0, *dense, v),
+             pa.ablate_dense, lambda v: dense_bytes,
+             lambda v: p1_operations(od, t_full, dense, v, k1.CHUNK_PRIMS),
+             t_k1)
 
 
 def _probe_onehot(results: dict) -> None:
@@ -1443,53 +1561,110 @@ def _probe_decode(results: dict) -> None:
     log("  P3 d3w4096 and d3u are d3 on the card (Mosaic tiling knobs)")
 
 
-def _k1_split(od) -> None:
-    """The dense scan's time split by P1's variants on the main path's own
-    rays (the pool's bounce set, tmin T_MIN): full - cheapepi ~ the
-    epilogues, full - nodots ~ the dots, nocull - full what the cull saves;
-    with each variant's operations per ray, beside K1 (the compact-row
-    scan, which P1 full and nocull equal on every lane). Logged only."""
+def _k1_split(label: str, od, tmin: float, scene, tables, dense=None) -> dict:
+    """K1's time split by P1's variants on rays od of a render path (tmin
+    as the path's): full - cheapepi ~ the epilogues, full - nodots ~ the
+    dots with their staging, nocull - full what the cull saves, each as a
+    share of K1's ms; full and nocull held to K1's t bit for bit on every
+    lane with finite features. With `dense` (scene_tables' tables) the
+    dense scan's split beside it, as a share of its own full. Returns the
+    ms by variant (dense_* for the yardstick's) and the shares."""
+    import torch
+
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+    from raytracer_project_tpu_torch.ops import intersect
+    from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
+
+    t_k1 = k1.closest_hit(od, tmin, tables)[0]
+    feats = intersect.ray_features((od[0], od[1], od[2]), (od[3], od[4], od[5]))
+    finite = torch.isfinite(feats[:, :13]).all(1)
+    fine = fine_tables(scene, tables)
+    ms = {"K1": time_ms(f"K1 ({label})", lambda: k1.closest_hit(
+        od, tmin, tables))}
+    for v in pa.VARIANTS:
+        t = pa.ablate(od, tmin, tables, v)[0]
+        if v in ("full", "nocull"):
+            n_diff = int((finite & (t.view(torch.int32)
+                                    != t_k1.view(torch.int32))).sum())
+            log(f"  P1 {v} vs K1 ({label}): {n_diff} of {int(finite.sum())} "
+                f"finite lanes differ")
+            check(n_diff == 0, f"P1 {v} differs from K1 ({label})")
+        ms[v] = time_ms(f"P1 {v} ({label})", lambda: pa.ablate(
+            od, tmin, tables, v))
+        flops = p1_operations(od, t_k1, fine, v, intersect.MM_FINE)
+        log(f"  P1 {v} ({label}): {ms[v]:.4f} ms/launch "
+            f"({ms[v] / ms['K1']:.3f} of K1), {flops / od.shape[1]:.0f} "
+            f"operations per ray")
+    out = dict(lanes=od.shape[1], ms=ms, shares=_split_shares(ms, ms["K1"]))
+    log(f"  K1 split ({label}, {od.shape[1]} lanes, K1 {ms['K1']:.4f} ms): "
+        + _split_text(ms, ms["K1"]))
+    if dense is not None:
+        dms = {v: time_ms(f"P1 dense {v} ({label})", lambda: pa.ablate_dense(
+            od, tmin, *dense, v)) for v in pa.VARIANTS}
+        out.update(dense_ms=dms, dense_shares=_split_shares(dms, dms["full"]))
+        log(f"  dense scan split ({label}, dense full {dms['full']:.4f} ms): "
+            + _split_text(dms, dms["full"]))
+    return out
+
+
+def _split_shares(ms: dict, whole: float) -> dict:
+    f = ms["full"]
+    return {"epilogues": (f - ms["cheapepi"]) / whole,
+            "dots": (f - ms["nodots"]) / whole,
+            "cull_saves": (ms["nocull"] - f) / whole}
+
+
+def _split_text(ms: dict, whole: float) -> str:
+    sh = _split_shares(ms, whole)
+    f = ms["full"]
+    return (f"full {f:.4f} ms; full - cheapepi {f - ms['cheapepi']:.4f} ms "
+            f"({sh['epilogues']:.3f}, ~epilogues); full - nodots "
+            f"{f - ms['nodots']:.4f} ms ({sh['dots']:.3f}, ~dots and "
+            f"staging); nocull - full {ms['nocull'] - f:.4f} ms "
+            f"({sh['cull_saves']:.3f}, what the cull saves)")
+
+
+def _launch_floor(results: dict) -> None:
+    """The floor under the small kernels' times: an empty kernel
+    (csrc/launch_floor.cu) over the P2-P4 probes' lanes, timed as they are
+    (time_ms: 20 launches back to back behind a device sleep), recorded
+    with their rows and K2's and K3's, each with its bound's share of its
+    time with and without the floor."""
+    from raytracer_project_tpu_torch import tools
+
+    floor = {p: time_ms(f"empty kernel over {p} lanes",
+                        lambda p=p: tools.launch_floor(p))
+             for p in (P_MAIN, 8192)}
+    log(f"  launch floor: {floor[P_MAIN]:.5f} ms at {P_MAIN} lanes, "
+        f"{floor[8192]:.5f} ms at 8192")
+    for key, r in results.items():
+        if key in ("decode", "shade_advance", "P2") or key.startswith(
+                ("P3.", "P4.")):
+            r.update(launch_floor_ms=floor[P_MAIN],
+                     launch_floor_8192_ms=floor[8192])
+            log(f"  {key}: {r['ms']:.5f} ms/launch at {P_MAIN} lanes, "
+                f"{r['bound_ms'] / r['ms']:.3f} of it the bound; less the "
+                f"floor {r['ms'] - floor[P_MAIN]:.5f} ms, "
+                f"{r['bound_ms'] / max(r['ms'] - floor[P_MAIN], 1e-6):.3f}")
+
+
+def phase_probes(results: dict, main_rays) -> None:
+    """The four TPU probes' twins: P1 (K1 ablations, also splitting K1 on
+    the main path's bounce rays `main_rays`), P2/P4 (one-hot row fetch
+    layouts), P3 (decode bisection); and the launch floor under them."""
     from raytracer_project_tpu_torch.core.constants import T_MIN
     from raytracer_project_tpu_torch.ops import closest_hit as k1
     from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
 
-    scene = _showcase(8, 8)[0]
-    tab = pa.scene_tables(scene)
-    scan = k1.scan_tables(scene)
-    t_k1 = k1.closest_hit(od, T_MIN, scan)[0]
-    ms = {"K1": time_ms("K1 (bounce set)", lambda: k1.closest_hit(
-        od, T_MIN, scan))}
-    for v in pa.VARIANTS:
-        t = pa.ablate(od, T_MIN, *tab, v)[0]
-        if v in ("full", "nocull"):
-            n_diff = int((t != t_k1).sum())
-            log(f"  P1 {v} vs K1 on the bounce set: {n_diff} lanes differ")
-            check(n_diff == 0, f"P1 {v} differs from K1 on the bounce set")
-        ms[v] = time_ms(f"P1 {v} (bounce set)", lambda: pa.ablate(
-            od, T_MIN, *tab, v))
-        flops = p1_operations(od, t_k1, tab, v)
-        log(f"  P1 {v} on the bounce set: {ms[v]:.4f} ms/launch "
-            f"({ms[v] / ms['K1']:.3f} of K1), {flops / od.shape[1]:.0f} "
-            f"operations per ray")
-    f = ms["full"]
-    log(f"  dense scan split ({od.shape[1]} bounce lanes; K1 {ms['K1']:.4f} "
-        f"ms): full {f:.4f} ms; "
-        f"full - cheapepi {f - ms['cheapepi']:.4f} ms "
-        f"({(f - ms['cheapepi']) / f:.3f}, ~epilogues); full - nodots "
-        f"{f - ms['nodots']:.4f} ms ({(f - ms['nodots']) / f:.3f}, ~dots); "
-        f"nocull - full {ms['nocull'] - f:.4f} ms "
-        f"({(ms['nocull'] - f) / f:.3f}, what the cull saves)")
-
-
-def phase_probes(results: dict, main_rays) -> None:
-    """The four TPU probes' twins: P1 (K1 ablations, also split on the main
-    path's bounce rays `main_rays`), P2/P4 (one-hot row fetch layouts), P3
-    (decode bisection)."""
     log("probes:")
     _probe_p1(results)
-    _k1_split(main_rays)
+    scene = _showcase(8, 8)[0]
+    results["closest_hit"]["split"] = {"showcase": _k1_split(
+        "showcase bounce set", main_rays, T_MIN, scene, k1.scan_tables(scene),
+        pa.scene_tables(scene))}
     _probe_onehot(results)
     _probe_decode(results)
+    _launch_floor(results)
 
 
 # --- phases 11-16: the scenes past the showcase, the BVH, the bench ---------
@@ -1598,7 +1773,7 @@ def phase_funnel_kernels(results: dict) -> None:
     path's own functions; K4 on all 360,000 of them and K1 on the first
     131,072 (the pool's width), each against its plain version, K4 also
     against the brute-force oracle, timed, with the operation bound
-    counted as for the showcase."""
+    counted as for the showcase; then K1's split by P1 on those lanes."""
     import torch
 
     from raytracer_project_tpu_torch import bench
@@ -1671,6 +1846,10 @@ def phase_funnel_kernels(results: dict) -> None:
         results[key].update(funnel_lanes=n, funnel_ms=ms,
                             funnel_plain_ms=plain_ms, funnel_bound_ms=bound,
                             funnel_bound_by=by, funnel_max_abs_err=err)
+    # K1 split by P1 on the same 131,072 bounce lanes: where the 59-63x
+    # over its bound goes (the cull per 128-ray block was the suspect).
+    results["closest_hit"].setdefault("split", {})["funnel"] = _k1_split(
+        "funnel bounce set", od, 1e-3, scene, tables)
 
 
 def _baseline_configs():

@@ -57,109 +57,7 @@
 
 #include "closest_hit_sparse.cuh"
 
-// --- the compact-row scan ----------------------------------------------------
-
-// 6 blocks of 128 threads per SM (at most 85 registers): left to itself
-// ptxas gives the kernel 48 registers and spills.
-template <bool FROM_OD>
-__global__ void __launch_bounds__(SCAN_THREADS, 6)
-    tile_scan_kernel(const float* __restrict__ rays, int n, float tmin,
-                     Rows sph, Rows tri, Rows box, float* __restrict__ out_t,
-                     int* __restrict__ out_idx, int* __restrict__ out_type) {
-  __shared__ float4 ring[RING_STAGES][SCAN_TILE * MAX_ROW_F4];
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * SCAN_THREADS + tid;
-  ScanRay ray;
-  ray.ok = i < n;
-  const int ii = ray.ok ? i : n - 1;
-  if constexpr (FROM_OD) {
-    const float o[3] = {rays[ii], rays[n + ii], rays[2 * n + ii]};
-    const float d[3] = {rays[3 * n + ii], rays[4 * n + ii], rays[5 * n + ii]};
-    float f[NFEAT];
-    ray_features(o, d, f);
-#pragma unroll
-    for (int k = 0; k < SCAN_FEATS; ++k) ray.f[k] = f[k];
-  } else {
-#pragma unroll
-    for (int k = 0; k < SCAN_FEATS; ++k) ray.f[k] = rays[(size_t)k * n + ii];
-  }
-  ray.inv_a = 1.0f / ray.f[12];
-  ray.best_t = T_MAX_F;
-  ray.best_idx = 0;
-  ray.best_type = 0;
-
-  // Tiles are numbered through the three tables in scan order.
-  const int n0 = (sph.count + SCAN_TILE - 1) / SCAN_TILE;
-  const int n1 = (tri.count + SCAN_TILE - 1) / SCAN_TILE;
-  const int total = n0 + n1 + (box.count + SCAN_TILE - 1) / SCAN_TILE;
-  auto which_of = [&](int g) { return g < n0 ? 0 : (g < n0 + n1 ? 1 : 2); };
-  auto first_of = [&](int w) { return w == 0 ? 0 : (w == 1 ? n0 : n0 + n1); };
-  auto rows_of = [&](int w) {
-    return w == 0 ? sph.rows : (w == 1 ? tri.rows : box.rows);
-  };
-  auto bounds_of = [&](int w) {
-    return w == 0 ? sph.bounds : (w == 1 ? tri.bounds : box.bounds);
-  };
-  auto count_of = [&](int w) {
-    return w == 0 ? sph.count : (w == 1 ? tri.count : box.count);
-  };
-  // The first tile from g on that some ray of the block reaches (with the
-  // best t so far: a later, smaller best t only culls more).
-  auto next_tile = [&](int g) {
-    for (; g < total; ++g) {
-      const int w = which_of(g);
-      const float* b = bounds_of(w) + 6 * (g - first_of(w));
-      if (__syncthreads_or(reaches(b, ray))) break;
-    }
-    return g;
-  };
-  auto stage = [&](int g, int s) {
-    const int w = which_of(g);
-    const int t0 = (g - first_of(w)) * SCAN_TILE;
-    const int w4 = w == 0 ? row_f4<2>() : (w == 1 ? row_f4<4>() : row_f4<6>());
-    const int n4 = min(SCAN_TILE, count_of(w) - t0) * w4;
-    const float4* src = rows_of(w) + (size_t)t0 * w4;
-    float4* dst = ring[s];
-    for (int q = tid; q < n4; q += SCAN_THREADS) cp_async16(dst + q, src + q);
-    cp_async_commit();
-  };
-
-  int cur = next_tile(0);
-  if (cur < total) stage(cur, 0);
-  for (int s = 0; cur < total; s ^= 1) {
-    const int nxt = next_tile(cur + 1);
-    if (nxt < total) {
-      stage(nxt, s ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int w = which_of(cur);
-    const int k = cur - first_of(w);
-    if (__any_sync(0xffffffffu, reaches(bounds_of(w) + 6 * k, ray))) {
-      const float4* rows = ring[s];
-      const int t0 = k * SCAN_TILE;
-      const int nr = min(SCAN_TILE, count_of(w) - t0);
-      if (w == 0) {
-        scan_tile<2>(rows, nr, t0, 0, tmin, ray);
-      } else if (w == 1) {
-        scan_tile<4>(rows, nr, t0, 1, tmin, ray);
-      } else {
-        scan_tile<6>(rows, nr, t0, 2, tmin, ray);
-      }
-    }
-    // Every warp is done with stage s before the next tile is copied there.
-    __syncthreads();
-    cur = nxt;
-  }
-
-  if (ray.ok) {
-    out_t[i] = ray.best_t;
-    out_idx[i] = ray.best_idx;
-    out_type[i] = ray.best_type;
-  }
-}
+// --- the compact-row scan (tile_scan_kernel, csrc/closest_hit_sparse.cuh) ---
 
 template <bool FROM_OD>
 static int tile_scan(const void* rays, int n, float tmin, const void* srows,
@@ -174,7 +72,7 @@ static int tile_scan(const void* rays, int n, float tmin, const void* srows,
   if (grid > 0) {
     tile_scan_kernel<FROM_OD><<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)rays, n, tmin, sph, tri, box, (float*)out_t,
-        (int*)out_idx, (int*)out_type);
+        (int*)out_idx, (int*)out_type, 0);
   }
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = ("closest_hit", "decode", "shade_advance", "probe_a1_ablate",
-           "probe_onehot", "probe_decode")
+           "probe_onehot", "probe_decode", "launch_floor")
 
 # --fmad=false keeps every a*b+c as a rounded product and a rounded sum,
 # the arithmetic of the plain PyTorch versions; fmaf() stays an FMA.
@@ -50,10 +50,13 @@ SIGNATURES = {
                              [_P, _P, _P, _I, _P, _P, _P, _P, _P, _U, _I, _I,
                               _I, _F, _I, _F, _I, _I, _I, _I, _F, _I, _I, _I,
                               _I, _I] + [_P] * 11),
-    "probe_a1_ablate": ("probe_a1_ablate", [_I, _P, _I, _F]
-                        + [_P, _I, _P, _I] * 3 + [_I, _P, _P, _P, _P]),
+    "probe_a1_ablate": ("probe_a1_ablate", [_I, _P, _I, _F] + [_P, _P, _I] * 3
+                        + [_I, _P, _P, _P, _P]),
+    "probe_a1_ablate_dense": ("probe_a1_ablate", [_I, _P, _I, _F]
+                              + [_P, _I, _P, _I] * 3 + [_I, _P, _P, _P, _P]),
     "probe_onehot": ("probe_onehot", [_I, _I, _I, _P, _P, _P, _I, _I, _P, _P,
                                       _I, _P]),
+    "launch_floor": ("launch_floor", [_I, _P]),
     "probe_decode_stage": ("probe_decode", [_I, _P, _P, _P, _P, _I, _P, _I, _P,
                                             _I, _P, _I, _I, _I, _I, _P, _P]),
 }

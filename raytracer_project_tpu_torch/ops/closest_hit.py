@@ -201,8 +201,10 @@ def _outputs(rays, n):
             torch.empty((n,), dtype=torch.int32, device=rays.device))
 
 
-def _launch(entry, rays, n, tmin, tables: ScanTables):
-    """One launch of the compact-row scan `entry`."""
+def scan_args(rays, n, tmin, tables: ScanTables) -> list:
+    """The compact-row scan's C arguments (rays, n, tmin, then each table's
+    rows, tile bounds and count), after checking what the kernel assumes;
+    csrc/closest_hit.cu's entries and P1's take them."""
     kernels.require_cuda(rays, *tables.rows, *tables.bounds,
                          dtype=torch.float32)
     if rays.requires_grad:
@@ -217,10 +219,16 @@ def _launch(entry, rays, n, tmin, tables: ScanTables):
         if bnd.shape[0] * SCAN_TILE < n_rows:
             raise ValueError(f"{bnd.shape[0]} tile bounds of width "
                              f"{SCAN_TILE} for {n_rows} rows")
-    out = _outputs(rays, n)
     args = [rays, n, tmin]
     for rows, bnd, c in zip(tables.rows, tables.bounds, tables.counts):
         args += [rows, bnd, c]
+    return args
+
+
+def _launch(entry, rays, n, tmin, tables: ScanTables):
+    """One launch of the compact-row scan `entry`."""
+    args = scan_args(rays, n, tmin, tables)
+    out = _outputs(rays, n)
     kernels.launch(entry, *args, *out)
     return out
 

@@ -57,6 +57,13 @@ def time_ms(fn, device: torch.device, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
+def launch_floor(n: int) -> None:
+    """One launch of csrc/launch_floor.cu's empty kernel over n lanes
+    (ceil(n / 128) blocks of 128 threads) on the current CUDA device: what
+    the probes' timer reads for a launch with no work in it (card only)."""
+    kernels.launch("launch_floor", n)
+
+
 def arg_parser(doc: str) -> argparse.ArgumentParser:
     """A parser with the common `--device` option (cuda unless asked)."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])

@@ -403,26 +403,83 @@ def test_features_render_matches_cpu(cuda, monkeypatch):
 
 # --- the kernel probes (raytracer_project_tpu_torch/tools) -----------------
 
+def _finite_t_equal(t, ref, od):
+    """t equals ref bit for bit on every lane whose features are finite."""
+    feats = intersect.ray_feature_rows(od[:3].T, od[3:].T)
+    finite = torch.isfinite(feats[:13]).all(0)
+    return torch.equal(t[finite].view(torch.int32),
+                       ref[finite].view(torch.int32))
+
+
+def _showcase_bounce_rays(dev, size=128):
+    """od f32[6, size^2]: one scatter of the showcase camera's rays, made
+    by the chunked path's own functions."""
+    from raytracer_project_tpu_torch.ops import shade
+
+    scene = presets.showcase_scene().to(dev)
+    cam = tcam.make_camera(image_width=size, image_height=size,
+                           **CAM_KW).to(dev)
+    pix = torch.arange(size * size, device=dev)
+    lr = rng.lane_rng(rng.seed_from_int(0), pix, 0).with_ctx(0, 0)
+    o, d = tcam.generate_rays(cam, lr, pix, size)
+    first = intersect.intersect(scene, o, d, 1e-3, intersect.hit_tables(scene))
+    sc = shade.scatter(scene, intersect.make_record(scene, o, d, first), d, lr)
+    return scene, torch.cat([sc.origin.T, sc.direction.T]).contiguous()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", pa.VARIANTS)
 def test_ablation_kernel_matches_plain(cuda, variant):
-    """P1 on 16,384 of the probe's rays against its plain version grouped
-    per warp (pa.compare's budgets); `full` equals K1's t bit for bit (the
-    same fmaf dots and per-warp cull over the same columns) and `nocull`."""
+    """P1 (K1's compact-row scan) on 16,384 of the probe's rays against its
+    plain version at the card's grouping (pa.compare's budgets); idx and
+    type 0; `full` and `nocull` equal K1's t bit for bit."""
+    scene = presets.showcase_scene().to(cuda)
+    tables = k1.scan_tables(scene)
+    od = pa.make_rays(16_384, 1, cuda)
+    pa.ablate.launches = 0
+    t, idx, typ = pa.ablate(od, 0.0, tables, variant)
+    assert pa.ablate.launches == 1
+    assert not idx.any() and not typ.any()
+    ref = pa.ablate_plain(od, 0.0, tables.coeffs, tables.bounds,
+                          tables.counts, variant)[0]
+    stats = pa.compare(variant, t, ref)
+    assert stats["ok"], stats
+    if variant in ("full", "nocull"):
+        assert _finite_t_equal(t, k1.closest_hit(od, 0.0, tables)[0], od)
+
+
+@pytest.mark.cuda
+def test_ablation_full_equals_k1_on_bounce_rays(cuda):
+    """On 16,384 showcase bounce rays at tmin 1e-3, P1 `full` and `nocull`
+    equal K1's t bit for bit on every lane with finite features."""
+    scene, od = _showcase_bounce_rays(cuda)
+    tables = k1.scan_tables(scene)
+    tk = k1.closest_hit(od, 1e-3, tables)[0]
+    assert int((tk < 1e30).sum()) > od.shape[1] // 10
+    for v in ("full", "nocull"):
+        assert _finite_t_equal(pa.ablate(od, 1e-3, tables, v)[0], tk, od), v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", pa.VARIANTS)
+def test_ablation_dense_kernel_matches_plain(cuda, variant):
+    """The dense yardstick (probe_a1_ablate_dense) on 16,384 of the probe's
+    rays against its plain version grouped per warp over 512-wide chunks
+    (pa.compare's budgets); `full` equals the dense K1's t and `nocull`."""
     scene = presets.showcase_scene().to(cuda)
     coeffs, bounds, counts = pa.scene_tables(scene)
     od = pa.make_rays(16_384, 1, cuda)
-    pa.ablate.launches = 0
-    t, idx, typ = pa.ablate(od, 0.0, coeffs, bounds, counts, variant)
-    assert pa.ablate.launches == 1
+    pa.ablate_dense.launches = 0
+    t, idx, typ = pa.ablate_dense(od, 0.0, coeffs, bounds, counts, variant)
+    assert pa.ablate_dense.launches == 1
     assert not idx.any() and not typ.any()
-    ref = pa.ablate_plain(od, 0.0, coeffs, bounds, counts, variant, pa.WARP)[0]
+    ref = pa.ablate_plain(od, 0.0, coeffs, bounds, counts, variant)[0]
     stats = pa.compare(variant, t, ref)
     assert stats["ok"], stats
     if variant == "full":
-        tk = k1.closest_hit(od, 0.0, k1.scan_tables(scene))[0]
+        tk = k1.closest_hit_dense(od, 0.0, coeffs, bounds, counts)[0]
         assert torch.equal(t, tk)
-        nocull = pa.ablate(od, 0.0, coeffs, bounds, counts, "nocull")[0]
+        nocull = pa.ablate_dense(od, 0.0, coeffs, bounds, counts, "nocull")[0]
         assert torch.equal(t, nocull)
 
 

@@ -35,6 +35,7 @@ from raytracer_project_tpu_torch.models import environment as tenv
 from raytracer_project_tpu_torch.models import presets as tpresets
 from raytracer_project_tpu_torch.ops import closest_hit as k1
 from raytracer_project_tpu_torch.ops import fused_step as tfs
+from raytracer_project_tpu_torch.ops import intersect as tisect
 from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
 from raytracer_project_tpu_torch.tools import probe_decode as pd
 from raytracer_project_tpu_torch.tools import probe_onehot as po
@@ -162,27 +163,79 @@ def test_ablation_matches_reference_probe(p1, variant):
 
 def test_ablation_cull_changes_no_result(p1):
     """The port's full and nocull scans give the same t bit for bit, both
-    with the probe's padded columns and 512-ray blocks and with the tables'
-    counts and warp blocks (what the kernel runs)."""
+    at the card's grouping (K1's ScanTables: 128-wide tiles, warps of 32)
+    and with the probe's padded columns, 512-wide chunks and 512-ray
+    blocks."""
     _, ts, od = p1
-    coeffs, bounds, counts = pa.scene_tables(ts)
+    scan = k1.scan_tables(ts)
+    coeffs, bounds, _ = pa.scene_tables(ts)
     odt = torch.as_tensor(od)
-    for cols, block in ((tuple(c.shape[2] for c in coeffs), pa.BLOCK),
-                        (counts, pa.WARP)):
-        full = pa.ablate_plain(odt, 0.0, coeffs, bounds, cols, "full", block)
-        nocull = pa.ablate_plain(odt, 0.0, coeffs, bounds, cols, "nocull",
-                                 block)
+    for tab, block in (((scan.coeffs, scan.bounds, scan.counts), pa.WARP),
+                       ((coeffs, bounds, tuple(c.shape[2] for c in coeffs)),
+                        pa.BLOCK)):
+        full = pa.ablate_plain(odt, 0.0, *tab, "full", block)
+        nocull = pa.ablate_plain(odt, 0.0, *tab, "nocull", block)
         assert torch.equal(full[0], nocull[0])
-    # On CPU tensors the wrapper is the plain version with a warp's blocks;
-    # its full t is K1's (whose plain version sums the dots as the
-    # reference's digit split does) under the closest-hit budgets.
-    t = pa.ablate(odt, 0.0, coeffs, bounds, counts, "full")[0]
-    assert torch.equal(t, full[0])
-    tk = k1.closest_hit_plain(odt, 0.0, coeffs, counts)[0]
+        if block == pa.WARP:
+            card = full[0]
+    # On CPU tensors the wrapper is the plain version at the card's
+    # grouping; its full t is K1's (whose plain version sums the dots as
+    # the reference's digit split does) under the closest-hit budgets.
+    t = pa.ablate(odt, 0.0, scan, "full")[0]
+    assert torch.equal(t, card)
+    tk = k1.closest_hit_plain(odt, 0.0, scan.coeffs, scan.counts)[0]
     both = (tk < T_MAX) & (t < T_MAX)
     assert int(((tk < T_MAX) != (t < T_MAX)).sum()) <= t.shape[0] // 100
     rel = (t - tk).abs()[both] / tk.abs()[both].clamp(min=1e-3)
     assert float((rel > 5e-3).float().mean()) <= 0.03
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ablation_cull_only_skips_tiles(p1, seed):
+    """At the card's grouping a cull only skips tiles: cheapepi's t is
+    never below the unculled minimum of the raw group-0 dots over every
+    primitive, and is one of those dots; nodots is T_MAX on every lane.
+    Rays o = s N(0, 1), d = N(0, 1) with the scale s from the seed."""
+    _, ts, _ = p1
+    scan = k1.scan_tables(ts)
+    r = np.random.default_rng(seed)
+    od = torch.as_tensor(np.concatenate([
+        (1.0 + 3.0 * seed) * r.normal(size=(3, 1024)),
+        r.normal(size=(3, 1024))]).astype(np.float32))
+    feats = tisect.ray_features((od[0], od[1], od[2]), (od[3], od[4], od[5]))
+    # Every raw group-0 dot, tile by tile as the plain version forms them.
+    dots = []
+    for coeff, n in zip(scan.coeffs, scan.counts):
+        g = coeff.shape[1]
+        for c0 in range(0, n, k1.SCAN_TILE):
+            w = min(k1.SCAN_TILE, n - c0)
+            dots.append((feats @ coeff[:, :, c0:c0 + w].reshape(16, g * w))
+                        [:, :w])
+    dots = torch.cat(dots, 1)
+    t = pa.ablate(od, 0.0, scan, "cheapepi")[0]
+    assert bool((t >= dots.amin(1)).all())
+    assert bool((dots == t[:, None]).any(1).all())
+    assert bool((t > dots.amin(1)).any())      # the cull did skip tiles
+    assert bool((pa.ablate(od, 0.0, scan, "nodots")[0] == T_MAX).all())
+
+
+def test_ablation_wrappers_on_the_cpu(p1, capsys):
+    """On CPU tensors `ablate_dense` is the plain version grouped per warp
+    over the dense tables' 512-wide chunks, the probe's entry runs the
+    four variants, and an unknown variant raises."""
+    _, ts, od = p1
+    odt = torch.as_tensor(od[:, :256]).contiguous()
+    dense = pa.scene_tables(ts)
+    for v in pa.VARIANTS:
+        t = pa.ablate_dense(odt, 0.0, *dense, v)[0]
+        assert torch.equal(t, pa.ablate_plain(odt, 0.0, *dense, v, pa.WARP)[0])
+    runs = pa.main("cpu", p=256)
+    assert list(runs) == list(pa.VARIANTS)
+    assert torch.equal(runs["full"]["t"], runs["nocull"]["t"])
+    assert "dense full" in pa.run_dense("full", odt, *dense)["variant"]
+    assert "nocull" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="unknown variant"):
+        pa.ablate(odt, 0.0, k1.scan_tables(ts), "nothing")
 
 
 # --- P2 and P4: the one-hot row fetch ---------------------------------------
