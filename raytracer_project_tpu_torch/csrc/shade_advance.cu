@@ -1,6 +1,8 @@
 // K3, shade-advance (replaces the Pallas kernel _shade_advance_kernel with
 // _inclusive_rank, _sun_sky and _raygen, raytracer_project_tpu/ops/
-// fused_step.py:669, :571, :591, :633).
+// fused_step.py:669, :571, :591, :633; as K3 fused also K2's
+// _decode_kernel, :326, and the step's scatter into the accumulator,
+// :1398-1420).
 //
 // Per lane: background (sun-sky, solid or HDR texel), bump-mapped normal,
 // the branchless Lambertian / metal / dielectric / isotropic / emissive
@@ -10,8 +12,9 @@
 // kernel. The texel, bump-delta and HDR rows are direct loads here (the
 // reference gathers them between its kernels).
 //
-// Three features are compile-time variants, shade_kernel<SPEC, AOVS, FOG>,
-// so that the beauty variant <false, false, false> carries none of them:
+// Three features are compile-time variants, shade_kernel<SPEC, AOVS, FOG,
+// FUSED>, so that the beauty variant <false, false, false, *> carries none
+// of them:
 //   FOG   solid-albedo fog: per volume row of vparams (f32[V, 16], read by
 //         every lane through the read-only cache) the boundary span clamped
 //         by the surface hit and an exponential free flight; a scatter
@@ -30,10 +33,27 @@
 // decode do not change), n_pixels is the window's size, a respawned slot s
 // becomes pixel s + pixel_offset, and targets are li - pixel_offset
 // (reference :564-567, :971, :1001-1012, :1041). Full frames pass 0.
-// Outputs are [k, P] rows that the pool adds with one index_add_: contrib
-// (beauty 3, the enabled AOV values, reflection 3, refraction 3) and tgt
-// (beauty, AOV, reflection, refraction targets); fused_step.acc_channels
-// names them.
+// FUSED picks what the kernel reads and what it hands on:
+//   false  the unfused K3, kept as the yardstick of K3 fused and for the
+//          plain step's parity tests: it reads K2's [24, P] record rows and
+//          writes [k, P] rows that a caller adds with one index_add_:
+//          contrib (beauty 3, the enabled AOV values, reflection 3,
+//          refraction 3) and tgt (beauty, AOV, reflection, refraction
+//          targets, n_pixels for a lane that finished nothing);
+//          fused_step.acc_channels names them.
+//   true   K3 fused, the main path's step: it reads K1's closest hit (t,
+//          idx, type) and decodes it in registers (decode_lane,
+//          csrc/decode.cuh), so no record rows exist, and adds what a
+//          lane finishes straight into the flat accumulator acc
+//          (f32[channels * (n_pixels + 1)], channel c at c * stride, in
+//          acc_channels' order) with one atomicAdd per channel. A lane that
+//          finishes nothing adds nothing: the reference ran one wide
+//          scatter outside its kernel because XLA's scatter staging cost
+//          ~2 ms per scatter on the TPU, and on an H100 that scatter
+//          (index_add_ with every idle lane on one dummy address per
+//          channel) took more device time than K2 and K3 together.
+//          The sums within a step land in no fixed order, so a pixel that
+//          two lanes finish in one step is summed in either order.
 //
 // The respawn needs, for each free lane, the number of free lanes before
 // it in lane order. The reference carries that count across a grid that
@@ -45,26 +65,28 @@
 //                   it, ranks its free lanes with warp ballots, and gives
 //                   the lane of rank r the work id next_work + r - 1 while
 //                   that is below total_work; block 0 writes next_work,
-//                   the segment count (int64) and the live count.
+//                   the segment count (int64) and the live count, and
+//                   for K3 fused adds 1 to the step count (int64, in
+//                   place) when the step began with live lanes.
 //
-// Bound on the H100: bytes. Per lane the beauty variant reads 24 record
+// Bound on the H100: bytes. The unfused beauty variant reads 24 record
 // rows, 16 state rows and up to 6 texel words and writes 16 state rows, 3
-// contributions and a target: about 272 B/lane at 3.35 TB/s. The variant
+// contributions and a target: about 272 B/lane at 3.35 TB/s, and K2 moved
+// another 132 B/lane to make its records (404 B/lane in all). The variant
 // with every feature moves 22 state rows each way and writes 16
-// contributions and 4 targets: about 376 B/lane.
+// contributions and 4 targets: about 376 B/lane. K3 fused, each input byte
+// counted once: 16 state rows in and out (128 B), t, idx and type (12 B),
+// the scene tables once per launch, and 4 B per atomicAdd issued, 12 B per
+// finished beauty lane: about 140-152 B/lane in beauty; with every feature
+// 22 state rows each way (176 B), 12 B of hits and 4 B for each of up to
+// 18 channels a lane adds to.
 
 #include <stdint.h>
 
-#include "common.cuh"
+#include "decode.cuh"
 
 #define BLOCK 256
 #define NWARP (BLOCK / 32)
-
-enum {
-  RO_HIT = 0, RO_T = 1, RO_N = 2, RO_TAN = 5, RO_BIT = 8, RO_FRONT = 11,
-  RO_MTYPE = 12, RO_PARAM = 13, RO_BSTR = 14, RO_BASE = 15, RO_GU = 18,
-  RO_GV = 19, RO_HASB = 20, RO_TEXROW = 21, RO_BUMPROW = 22, RO_ENVROW = 23,
-};
 enum {
   BP_CENTER = 0, BP_P00 = 3, BP_DU = 6, BP_DV = 9, BP_DDU = 12, BP_DDV = 15,
   BP_SUN_DIR = 18, BP_SUN_COL = 21, BP_SUN_INT = 24, BP_SUN_SIZE = 25,
@@ -193,7 +215,42 @@ __device__ void raygen(const float* bp, uint32_t seed, int pix, int samp,
 
 // --- launch 1: shade and advance ---------------------------------------------
 
-template <bool SPEC, bool AOVS, bool FOG>
+// What K3 fused reads besides K3's inputs, and the accumulator it adds to.
+struct FusedArgs {
+  DecodeTables tb;
+  const float* t;    // K1's closest hits
+  const int* idx;
+  const int* typ;
+  float* acc;        // f32[channels * stride]: channel c at c * stride
+  int stride;        // n_pixels + 1
+};
+
+// The record of lane i from K2's [24, P] rows (the unfused K3).
+__device__ __forceinline__ Hit load_record(const float* __restrict__ rec,
+                                           int p, int i) {
+  const float* R = rec + i;
+  Hit h;
+  h.hit = R[RO_HIT * p] > 0.5f;
+  h.t = R[RO_T * p];
+  h.normal = v3(R[RO_N * p], R[(RO_N + 1) * p], R[(RO_N + 2) * p]);
+  h.tangent = v3(R[RO_TAN * p], R[(RO_TAN + 1) * p], R[(RO_TAN + 2) * p]);
+  h.bitangent = v3(R[RO_BIT * p], R[(RO_BIT + 1) * p], R[(RO_BIT + 2) * p]);
+  h.front = R[RO_FRONT * p] > 0.5f;
+  h.mtype = R[RO_MTYPE * p];
+  h.param = R[RO_PARAM * p];
+  h.bstr = R[RO_BSTR * p];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) h.base[c] = R[(RO_BASE + c) * p];
+  h.gate_u = R[RO_GU * p];
+  h.gate_v = R[RO_GV * p];
+  h.has_bump = R[RO_HASB * p] > 0.5f;
+  h.texrow = R[RO_TEXROW * p];
+  h.bumprow = R[RO_BUMPROW * p];
+  h.envrow = 0.0f;  // read where the HDR background needs it
+  return h;
+}
+
+template <bool SPEC, bool AOVS, bool FOG, bool FUSED>
 __global__ void shade_kernel(
     const float* __restrict__ rec, const float* __restrict__ sf,
     const int* __restrict__ si, int p, const float* __restrict__ bp,
@@ -204,33 +261,35 @@ __global__ void shade_kernel(
     int use_refraction, int n_volumes, float* __restrict__ out_f,
     int* __restrict__ out_i,
     float* __restrict__ contrib, int* __restrict__ tgt,
-    int* __restrict__ counts) {
+    int* __restrict__ counts, FusedArgs fa) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool in = i < p;
   bool live = false, free_lane = false, still = false;
   if (in) {
-    const float* R = rec + i;
-    bool hit = R[RO_HIT * p] > 0.5f;
-    float t_hit = R[RO_T * p];
-    V3 normal = v3(R[RO_N * p], R[(RO_N + 1) * p], R[(RO_N + 2) * p]);
-    V3 tangent = v3(R[RO_TAN * p], R[(RO_TAN + 1) * p], R[(RO_TAN + 2) * p]);
-    V3 bitangent = v3(R[RO_BIT * p], R[(RO_BIT + 1) * p], R[(RO_BIT + 2) * p]);
-    bool front = R[RO_FRONT * p] > 0.5f;
-    float mtype = R[RO_MTYPE * p], param = R[RO_PARAM * p];
-    float bstr = R[RO_BSTR * p];
-    V3 base_col = v3(R[RO_BASE * p], R[(RO_BASE + 1) * p], R[(RO_BASE + 2) * p]);
-    float gate_u = R[RO_GU * p], gate_v = R[RO_GV * p];
-    float texrow = R[RO_TEXROW * p];
+    V3 o = v3(sf[i], sf[p + i], sf[2 * p + i]);
+    V3 d = v3(sf[3 * p + i], sf[4 * p + i], sf[5 * p + i]);
+    Hit h;
+    if constexpr (FUSED) {
+      h = decode_lane(o, d, fa.t[i], fa.idx[i], fa.typ[i], fa.tb);
+    } else {
+      h = load_record(rec, p, i);
+    }
+    bool hit = h.hit;
+    float t_hit = h.t;
+    V3 normal = h.normal, tangent = h.tangent, bitangent = h.bitangent;
+    bool front = h.front;
+    float mtype = h.mtype, param = h.param, bstr = h.bstr;
+    V3 base_col = v3(h.base[0], h.base[1], h.base[2]);
+    float gate_u = h.gate_u, gate_v = h.gate_v;
+    float texrow = h.texrow;
 
     int trow = (int)fmaxf(texrow, 0.0f);
-    int brow = (int)fmaxf(R[RO_BUMPROW * p], 0.0f);
+    int brow = (int)fmaxf(h.bumprow, 0.0f);
     float4 tex4 = __ldg(reinterpret_cast<const float4*>(atlas_rows) + trow);
     float2 gb2 = __ldg(reinterpret_cast<const float2*>(grad_rows) + brow);
     bool is_image_lane = texrow >= -0.5f;
     V3 tex3 = is_image_lane ? v3(tex4.x, tex4.y, tex4.z) : base_col;
 
-    V3 o = v3(sf[i], sf[p + i], sf[2 * p + i]);
-    V3 d = v3(sf[3 * p + i], sf[4 * p + i], sf[5 * p + i]);
     V3 thr = v3(sf[6 * p + i], sf[7 * p + i], sf[8 * p + i]);
     V3 rad = v3(sf[9 * p + i], sf[10 * p + i], sf[11 * p + i]);
     live = si[i] > 0;
@@ -323,8 +382,9 @@ __global__ void shade_kernel(
       float s = bp[BP_INTENSITY];
       bg = v3(bp[BP_BG] * s * 1.0f, bp[BP_BG + 1] * s * 1.0f, bp[BP_BG + 2] * s * 1.0f);
     } else {
+      float envrow = FUSED ? h.envrow : rec[RO_ENVROW * p + i];
       float4 e4 = __ldg(reinterpret_cast<const float4*>(env_rows) +
-                        (int)R[RO_ENVROW * p]);
+                        (int)envrow);
       float s = bp[BP_INTENSITY];
       bg = v3(e4.x * s, e4.y * s, e4.z * s);
     }
@@ -341,7 +401,7 @@ __global__ void shade_kernel(
     V3 n_b = v3(normal.x - f_u * tangent.x - f_v * bitangent.x,
                 normal.y - f_u * tangent.y - f_v * bitangent.y,
                 normal.z - f_u * tangent.z - f_v * bitangent.z);
-    bool has_bump = R[RO_HASB * p] > 0.5f;
+    bool has_bump = h.has_bump;
     V3 working_n = has_bump ? normalize(n_b) : normal;
     V3 unit_in = normalize(d);
 
@@ -425,17 +485,39 @@ __global__ void shade_kernel(
     bool done_beauty = done && !is_spec;
     // li is the global pixel id; the accumulator holds the window.
     int slot = li - pixel_offset;
-    tgt[i] = done_beauty ? slot : n_pixels;
-    contrib[i] = done_beauty ? rad.x : 0.0f;
-    contrib[p + i] = done_beauty ? rad.y : 0.0f;
-    contrib[2 * p + i] = done_beauty ? rad.z : 0.0f;
-    int crow = 3, trow_out = 1;
+    // K3 fused adds a finished lane's values to channel ch + k of its
+    // pixel; the unfused K3 writes contribution row crow + k and target
+    // row trow_out (the dummy slot n_pixels for a lane that finished
+    // nothing).
+    int ch = 3, crow = 3, trow_out = 1;
+    if constexpr (FUSED) {
+      if (done_beauty) {
+        atomicAdd(fa.acc + slot, rad.x);
+        atomicAdd(fa.acc + fa.stride + slot, rad.y);
+        atomicAdd(fa.acc + 2 * fa.stride + slot, rad.z);
+      }
+    } else {
+      tgt[i] = done_beauty ? slot : n_pixels;
+      contrib[i] = done_beauty ? rad.x : 0.0f;
+      contrib[p + i] = done_beauty ? rad.y : 0.0f;
+      contrib[2 * p + i] = done_beauty ? rad.z : 0.0f;
+    }
 
     // AOVs of bounce-0 beauty lanes within the aux budget.
     if (AOVS) {
       bool is_aux = live && at0 && samp < aux && !is_spec;
-      tgt[p + i] = is_aux ? slot : n_pixels;
+      if constexpr (!FUSED) tgt[p + i] = is_aux ? slot : n_pixels;
       trow_out = 2;
+      // One AOV value: added to `reps` channels (z-depth fills three with
+      // its one value), or written as one contribution row.
+      auto emit = [&](float v, int reps) {
+        if constexpr (FUSED) {
+          for (int r = 0; r < reps; ++r, ++ch)
+            if (is_aux) atomicAdd(fa.acc + ch * fa.stride + slot, v);
+        } else {
+          contrib[(crow++) * p + i] = v;
+        }
+      };
       if (aov_mask & AOV_ALBEDO) {
         const float tc[3] = {tex3.x, tex3.y, tex3.z};
 #pragma unroll
@@ -443,9 +525,8 @@ __global__ void shade_kernel(
           float alb = is_diel ? 1.0f : tc[k];
           alb = is_emit ? fminf(tc[k], 1.0f) : alb;
           alb = is_iso ? 0.0f : alb;
-          contrib[(crow + k) * p + i] = (is_aux && hit) ? alb : 0.0f;
+          emit((is_aux && hit) ? alb : 0.0f, 1);
         }
-        crow += 3;
       }
       if (aov_mask & AOV_NORMAL) {
         V3 nn = normalize(normal);
@@ -455,14 +536,12 @@ __global__ void shade_kernel(
           float c = nn.x * axis[0] + nn.y * axis[1] + nn.z * axis[2];
           c = (c + 1.0f) * 0.5f;
           float miss_c = k < 2 ? 0.5f : 1.0f;
-          contrib[(crow + k) * p + i] = is_aux ? (hit ? c : miss_c) : 0.0f;
+          emit(is_aux ? (hit ? c : miss_c) : 0.0f, 1);
         }
-        crow += 3;
       }
       if (aov_mask & AOV_Z) {
         float zval = 1.0f - clampf(t_hit / z_max, 0.0f, 1.0f);
-        contrib[crow * p + i] = (is_aux && hit) ? zval : 0.0f;
-        crow += 1;
+        emit((is_aux && hit) ? zval : 0.0f, 3);
       }
     }
 
@@ -474,12 +553,20 @@ __global__ void shade_kernel(
       const float sc[3] = {attn0.x * rad.x * fscale, attn0.y * rad.y * fscale,
                            attn0.z * rad.z * fscale};
       bool d_refl = done && to_refl, d_refr = done && to_refr;
-      tgt[trow_out * p + i] = d_refl ? slot : n_pixels;
-      tgt[(trow_out + 1) * p + i] = d_refr ? slot : n_pixels;
+      if constexpr (FUSED) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        contrib[(crow + k) * p + i] = d_refl ? sc[k] : 0.0f;
-        contrib[(crow + 3 + k) * p + i] = d_refr ? sc[k] : 0.0f;
+        for (int k = 0; k < 3; ++k) {
+          if (d_refl) atomicAdd(fa.acc + (ch + k) * fa.stride + slot, sc[k]);
+          if (d_refr) atomicAdd(fa.acc + (ch + 3 + k) * fa.stride + slot, sc[k]);
+        }
+      } else {
+        tgt[trow_out * p + i] = d_refl ? slot : n_pixels;
+        tgt[(trow_out + 1) * p + i] = d_refr ? slot : n_pixels;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          contrib[(crow + k) * p + i] = d_refl ? sc[k] : 0.0f;
+          contrib[(crow + 3 + k) * p + i] = d_refr ? sc[k] : 0.0f;
+        }
       }
     }
 
@@ -536,7 +623,7 @@ __global__ void respawn_kernel(
     const long long* __restrict__ seg_in, const int* __restrict__ counts,
     float* __restrict__ out_f, int* __restrict__ out_i,
     int* __restrict__ next_out, long long* __restrict__ seg_out,
-    int* __restrict__ live_count) {
+    int* __restrict__ live_count, long long* __restrict__ steps) {
   __shared__ long long red[NWARP];
   __shared__ int warp_free[NWARP];
   const int nb = gridDim.x;
@@ -565,6 +652,8 @@ __global__ void respawn_kernel(
       next_out[0] = (int)(nw < total_work ? nw : total_work);
       seg_out[0] = seg_in[0] + tl;
       live_count[0] = (int)(ts + spawned);
+      // K3 fused counts the steps that began with live lanes in place.
+      if (steps != nullptr && tl > 0) steps[0] += 1;
     }
   }
 
@@ -621,9 +710,59 @@ __global__ void respawn_kernel(
       (const float*)grad_rows, (const float*)env_rows, (const float*)vparams, \
       seed, pixel_offset, n_pixels, max_depth, env_mode, aux, z_max,         \
       aov_mask, use_reflection, use_refraction, n_volumes, (float*)out_f,    \
-      (int*)out_i,                                                           \
-      (float*)contrib, (int*)tgt, (int*)counts
+      (int*)out_i, (float*)contrib, (int*)tgt, (int*)counts, fa
 
+// Both launches of one step: shade_kernel in the variant the features
+// select (FUSED: K3 fused, else the unfused K3 writing contrib and tgt),
+// then respawn_kernel. steps may be null.
+template <bool FUSED>
+static int launch_step(
+    const void* rec, const void* state_f, const void* state_i, int p,
+    const void* bparams, const void* atlas_rows, const void* grad_rows,
+    const void* env_rows, const void* vparams, unsigned int seed,
+    int sample_offset, int pixel_offset, int n_pixels, float inv_n, int width,
+    float inv_w, int total_work, int max_depth, int env_mode, int aux,
+    float z_max, int aov_mask, int use_reflection, int use_refraction,
+    int n_beauty, int n_volumes, const void* next_work, const void* segments,
+    void* out_f, void* out_i, void* contrib, void* tgt, void* counts,
+    void* next_out, void* seg_out, void* live_count, void* steps,
+    FusedArgs fa, cudaStream_t s) {
+  int grid = (p + BLOCK - 1) / BLOCK;
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  bool want_spec = use_reflection || use_refraction;
+  switch ((want_spec ? 4 : 0) | (aov_mask ? 2 : 0) | (n_volumes > 0 ? 1 : 0)) {
+    case 0: shade_kernel<false, false, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 1: shade_kernel<false, false, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 2: shade_kernel<false, true, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 3: shade_kernel<false, true, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 4: shade_kernel<true, false, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 5: shade_kernel<true, false, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 6: shade_kernel<true, true, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    default: shade_kernel<true, true, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (want_spec) {
+    respawn_kernel<true><<<grid, BLOCK, 0, s>>>(
+        p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
+        inv_n, width,
+        inv_w, total_work, n_beauty, (const int*)next_work,
+        (const long long*)segments, (const int*)counts, (float*)out_f,
+        (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count,
+        (long long*)steps);
+  } else {
+    respawn_kernel<false><<<grid, BLOCK, 0, s>>>(
+        p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
+        inv_n, width,
+        inv_w, total_work, n_beauty, (const int*)next_work,
+        (const long long*)segments, (const int*)counts, (float*)out_f,
+        (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count,
+        (long long*)steps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The unfused K3: reads K2's rows, writes contrib and tgt.
 extern "C" int shade_advance_launch(
     const void* rec, const void* state_f, const void* state_i, int p,
     const void* bparams, const void* atlas_rows, const void* grad_rows,
@@ -634,36 +773,42 @@ extern "C" int shade_advance_launch(
     int n_beauty, int n_volumes, const void* next_work, const void* segments,
     void* out_f, void* out_i, void* contrib, void* tgt, void* counts,
     void* next_out, void* seg_out, void* live_count, void* stream) {
-  int grid = (p + BLOCK - 1) / BLOCK;
-  if (grid == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  bool want_spec = use_reflection || use_refraction;
-  switch ((want_spec ? 4 : 0) | (aov_mask ? 2 : 0) | (n_volumes > 0 ? 1 : 0)) {
-    case 0: shade_kernel<false, false, false><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 1: shade_kernel<false, false, true><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 2: shade_kernel<false, true, false><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 3: shade_kernel<false, true, true><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 4: shade_kernel<true, false, false><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 5: shade_kernel<true, false, true><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 6: shade_kernel<true, true, false><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    default: shade_kernel<true, true, true><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (want_spec) {
-    respawn_kernel<true><<<grid, BLOCK, 0, s>>>(
-        p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
-        inv_n, width,
-        inv_w, total_work, n_beauty, (const int*)next_work,
-        (const long long*)segments, (const int*)counts, (float*)out_f,
-        (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count);
-  } else {
-    respawn_kernel<false><<<grid, BLOCK, 0, s>>>(
-        p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
-        inv_n, width,
-        inv_w, total_work, n_beauty, (const int*)next_work,
-        (const long long*)segments, (const int*)counts, (float*)out_f,
-        (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count);
-  }
-  return (int)cudaGetLastError();
+  return launch_step<false>(
+      rec, state_f, state_i, p, bparams, atlas_rows, grad_rows, env_rows,
+      vparams, seed, sample_offset, pixel_offset, n_pixels, inv_n, width,
+      inv_w, total_work, max_depth, env_mode, aux, z_max, aov_mask,
+      use_reflection, use_refraction, n_beauty, n_volumes, next_work,
+      segments, out_f, out_i, contrib, tgt, counts, next_out, seg_out,
+      live_count, nullptr, FusedArgs{}, (cudaStream_t)stream);
+}
+
+// K3 fused: decodes K1's hits in registers, adds finished paths into acc
+// in place, and adds the step to steps when it began with live lanes.
+extern "C" int shade_accumulate_launch(
+    const void* t, const void* idx, const void* typ, const void* state_f,
+    const void* state_i, int p, const void* bparams, const void* atlas_rows,
+    const void* grad_rows, const void* env_rows, const void* vparams,
+    unsigned int seed, int sample_offset, int pixel_offset, int n_pixels,
+    float inv_n, int width, float inv_w, int total_work, int max_depth,
+    int env_mode, int aux, float z_max, int aov_mask, int use_reflection,
+    int use_refraction, int n_beauty, int n_volumes, const void* aparams,
+    const void* rectab, int n_rec, const void* mattab, int n_mat,
+    const void* texmeta, int n_tex, int n_spheres, int n_tris, int has_boxes,
+    float ah, float aw, int has_env, float eh, float ew, int stride,
+    const void* next_work, const void* segments, void* out_f, void* out_i,
+    void* acc, void* counts, void* next_out, void* seg_out, void* live_count,
+    void* steps, void* stream) {
+  FusedArgs fa{DecodeTables{(const float*)aparams, (const float*)rectab,
+                            (const float*)mattab, (const float*)texmeta, n_rec,
+                            n_mat, n_tex, n_spheres, n_tris, has_boxes,
+                            has_env, ah, aw, eh, ew},
+               (const float*)t, (const int*)idx, (const int*)typ,
+               (float*)acc, stride};
+  return launch_step<true>(
+      nullptr, state_f, state_i, p, bparams, atlas_rows, grad_rows, env_rows,
+      vparams, seed, sample_offset, pixel_offset, n_pixels, inv_n, width,
+      inv_w, total_work, max_depth, env_mode, aux, z_max, aov_mask,
+      use_reflection, use_refraction, n_beauty, n_volumes, next_work,
+      segments, out_f, out_i, nullptr, nullptr, counts, next_out, seg_out,
+      live_count, steps, fa, (cudaStream_t)stream);
 }

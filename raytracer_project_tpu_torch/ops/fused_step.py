@@ -1,13 +1,21 @@
 """The fused pooled-wavefront step (twin of
 raytracer_project_tpu/ops/fused_step.py).
 
-A pool of P lanes traces one path segment per step. Each step is three
-kernels and one scatter-add:
+A pool of P lanes traces one path segment per step. Each step is two
+kernels:
 
-  K1 closest hit    ops/closest_hit.py         (csrc/closest_hit.cu)
-  K2 decode         `decode` below             (csrc/decode.cu)
-  K3 shade-advance  `shade_advance` below      (csrc/shade_advance.cu)
-  accumulator       one Tensor.index_add_ of every output channel
+  K1 closest hit    ops/closest_hit.py          (csrc/closest_hit.cu)
+  K3 fused          `shade_accumulate` below    (csrc/shade_advance.cu)
+
+K3 fused decodes K1's hits in registers (K2's work, csrc/decode.cuh),
+shades and advances every lane, adds what each lane finishes straight
+into the flat accumulator, and respawns free lanes (a second launch);
+the pool then copies the live count to the host. The reference's split
+into K2 decode, K3 shade-advance and one wide scatter of every channel
+stays as `decode` and `shade_advance` (contribution and target rows):
+the kernel probe P3 runs K2, the card's checks time K2 + K3 as K3
+fused's yardstick, and `shade_accumulate_plain` is that composition,
+with the scatter, on the CPU.
 
 Besides beauty, K3 samples solid-albedo fog, writes the albedo / normal /
 z-depth AOVs of camera segments, and runs the reflection/refraction split
@@ -379,7 +387,7 @@ decode.launches = 0
 
 
 def trace_decode(tables: FusedTables, od, aparams):
-    """K1 then K2 on the pool's rays: the [24, P] hit-record rows."""
+    """K1 then K2 on the rays od: the [24, P] hit-record rows."""
     t, idx, typ = k1.closest_hit(od, T_MIN, tables.scan)
     return decode(tables, od, t, idx, typ, aparams)
 
@@ -838,39 +846,18 @@ def shade_advance(tables: FusedTables, rec, state_f, state_i, next_work,
     if rec.device.type == "cpu":
         return shade_advance_plain(tables, rec, state_f, state_i, next_work,
                                    segments, bparams, sp)
-    kernels.require_cuda(rec, state_f, bparams, tables.atlas_rows,
-                         tables.grad_rows, tables.env_rows, tables.vparams,
-                         dtype=torch.float32)
-    kernels.require_cuda(state_i, next_work, dtype=torch.int32)
-    kernels.require_cuda(segments, dtype=torch.int64)
-    p = rec.shape[1]
-    if (state_f.shape[0], state_i.shape[0]) != state_rows(sp):
-        raise ValueError(f"state rows {state_f.shape[0]}/{state_i.shape[0]}, "
-                         f"expected {state_rows(sp)}")
-    if sp.n_volumes > tables.vparams.shape[0]:
-        raise ValueError("n_volumes exceeds the volume table")
-    dev = rec.device
-    block = 256
-    n_blocks = -(-p // block)
+    kernels.require_cuda(rec, state_f, dtype=torch.float32)
+    scalars, outs = _k3_launch_parts(tables, state_f, state_i, next_work,
+                                     segments, bparams, sp)
+    out_f, out_i, counts, next_out, seg_out, live_count = outs
+    p, dev = rec.shape[1], rec.device
     n_c, n_t = output_rows(sp)
-    out_f = torch.empty_like(state_f)
-    out_i = torch.empty_like(state_i)
     contrib = torch.empty((n_c, p), dtype=torch.float32, device=dev)
     tgt = torch.empty((n_t, p), dtype=torch.int32, device=dev)
-    counts = torch.empty((3, n_blocks), dtype=torch.int32, device=dev)
-    next_out = torch.empty((1,), dtype=torch.int32, device=dev)
-    seg_out = torch.empty((1,), dtype=torch.int64, device=dev)
-    live_count = torch.empty((1,), dtype=torch.int32, device=dev)
-    aov_mask = sum(1 << k for k, name in enumerate(AOVS) if name in sp.aovs)
     kernels.launch(
-        "shade_advance_launch", rec, state_f, state_i, p, bparams,
-        tables.atlas_rows, tables.grad_rows, tables.env_rows, tables.vparams,
-        sp.seed, sp.sample_offset, sp.pixel_offset, sp.n_pixels,
-        float(np.float32(1.0 / sp.n_pixels)), sp.width,
-        float(np.float32(1.0 / sp.width)), sp.total_work, sp.max_depth,
-        sp.env_mode, sp.aux, float(sp.z_max), aov_mask, int(sp.use_reflection), int(sp.use_refraction), sp.n_beauty,
-        sp.n_volumes, next_work, segments, out_f, out_i, contrib, tgt, counts,
-        next_out, seg_out, live_count)
+        "shade_advance_launch", rec, state_f, state_i, p, *scalars,
+        next_work, segments, out_f, out_i, contrib, tgt, counts, next_out,
+        seg_out, live_count)
     if sp.features:
         shade_advance.features_launches += 1
     else:
@@ -880,6 +867,128 @@ def shade_advance(tables: FusedTables, rec, state_f, state_i, next_work,
 
 shade_advance.launches = 0
 shade_advance.features_launches = 0
+
+
+def _k3_launch_parts(tables: FusedTables, state_f, state_i, next_work,
+                     segments, bparams, sp: StepParams):
+    """What K3's two C entries share: the checks of the state and tables,
+    the launch's scalar block (bparams through n_volumes), and the outputs
+    it writes, (out_f, out_i, counts, next_out, seg_out, live_count)."""
+    kernels.require_cuda(state_f, bparams, tables.atlas_rows,
+                         tables.grad_rows, tables.env_rows, tables.vparams,
+                         dtype=torch.float32)
+    kernels.require_cuda(state_i, next_work, dtype=torch.int32)
+    kernels.require_cuda(segments, dtype=torch.int64)
+    if (state_f.shape[0], state_i.shape[0]) != state_rows(sp):
+        raise ValueError(f"state rows {state_f.shape[0]}/{state_i.shape[0]}, "
+                         f"expected {state_rows(sp)}")
+    if sp.n_volumes > tables.vparams.shape[0]:
+        raise ValueError("n_volumes exceeds the volume table")
+    p, dev = state_f.shape[1], state_f.device
+    aov_mask = sum(1 << k for k, name in enumerate(AOVS) if name in sp.aovs)
+    scalars = (
+        bparams, tables.atlas_rows, tables.grad_rows, tables.env_rows,
+        tables.vparams, sp.seed, sp.sample_offset, sp.pixel_offset,
+        sp.n_pixels, float(np.float32(1.0 / sp.n_pixels)), sp.width,
+        float(np.float32(1.0 / sp.width)), sp.total_work, sp.max_depth,
+        sp.env_mode, sp.aux, float(sp.z_max), aov_mask,
+        int(sp.use_reflection), int(sp.use_refraction), sp.n_beauty,
+        sp.n_volumes)
+    outs = (torch.empty_like(state_f), torch.empty_like(state_i),
+            torch.empty((3, -(-p // 256)), dtype=torch.int32, device=dev),
+            torch.empty((1,), dtype=torch.int32, device=dev),
+            torch.empty((1,), dtype=torch.int64, device=dev),
+            torch.empty((1,), dtype=torch.int32, device=dev))
+    return scalars, outs
+
+
+# ---------------------------------------------------------------------------
+# K3 fused: decode, shade, advance, accumulate, respawn
+# ---------------------------------------------------------------------------
+
+def new_accumulator(sp: StepParams, device) -> torch.Tensor:
+    """The flat accumulator of a pool render (f32, zeros): channel c of
+    acc_channels(sp) at [c * stride, c * stride + n_pixels), stride =
+    n_pixels + 1; the last slot of each channel is the dummy target of
+    K3's unfused outputs, which K3 fused never adds to."""
+    return torch.zeros((len(acc_channels(sp)) * (sp.n_pixels + 1),),
+                       dtype=torch.float32, device=device)
+
+
+def shade_accumulate_plain(tables: FusedTables, hits, state_f, state_i,
+                           next_work, segments, steps, aparams, bparams,
+                           sp: StepParams, acc):
+    """Plain PyTorch K3 fused: `decode_plain` of the hits, then
+    `shade_advance_plain`, then one index_add_ of its outputs into acc
+    (new_accumulator's layout) over the lanes whose target is a pixel,
+    channel by channel, each channel in lane order. acc and steps (i64[1],
+    plus one when the step began with live lanes) are updated in place.
+    Returns (state_f, state_i, next_work, segments, live_count, steps)."""
+    steps += (state_i[0] > 0).any().to(torch.int64)
+    rec = decode_plain(tables, state_f[:6], *hits, aparams)
+    (state_f, state_i, contrib, tgt, next_work, segments,
+     live_count) = shade_advance_plain(tables, rec, state_f, state_i,
+                                       next_work, segments, bparams, sp)
+    channels = acc_channels(sp)
+    idx = tgt[[t for _, t in channels]].to(torch.int64)
+    vals = contrib[[c for c, _ in channels]]
+    real = idx < sp.n_pixels
+    offsets = (torch.arange(len(channels), dtype=torch.int64,
+                            device=acc.device) * (sp.n_pixels + 1))[:, None]
+    acc.index_add_(0, (idx + offsets)[real], vals[real])
+    return state_f, state_i, next_work, segments, live_count, steps
+
+
+def shade_accumulate(tables: FusedTables, hits, state_f, state_i, next_work,
+                     segments, steps, aparams, bparams, sp: StepParams, acc):
+    """K3 fused, one pool step after K1: decode the closest hits `hits` =
+    (t, idx, typ) of the rays state_f[:6], shade and advance every lane,
+    add what each lane finishes into acc, and respawn free lanes from the
+    work counter. acc and steps are updated in place (see
+    `shade_accumulate_plain`, which CPU tensors take; CUDA tensors launch
+    csrc/shade_advance.cu's shade_kernel<..., FUSED = true>, the variant
+    that `sp` selects). Returns (state_f, state_i, next_work, segments,
+    live_count, steps). On the card a pixel that two lanes finish in one
+    step gets their sums in no fixed order. `launches` counts beauty-
+    variant launches, `features_launches` the others."""
+    if state_f.device.type == "cpu":
+        return shade_accumulate_plain(tables, hits, state_f, state_i,
+                                      next_work, segments, steps, aparams,
+                                      bparams, sp, acc)
+    t, idx, typ = hits
+    kernels.require_cuda(t, state_f, aparams, acc, tables.rectab,
+                         tables.mattab, tables.texmeta, dtype=torch.float32)
+    kernels.require_cuda(idx, typ, dtype=torch.int32)
+    kernels.require_cuda(steps, dtype=torch.int64)
+    scalars, outs = _k3_launch_parts(tables, state_f, state_i, next_work,
+                                     segments, bparams, sp)
+    out_f, out_i, counts, next_out, seg_out, live_count = outs
+    p = state_f.shape[1]
+    if t.shape[0] != p:
+        raise ValueError(f"{t.shape[0]} hits for {p} lanes")
+    stride = sp.n_pixels + 1
+    if acc.numel() != len(acc_channels(sp)) * stride:
+        raise ValueError(f"accumulator of {acc.numel()} values, expected "
+                         f"{len(acc_channels(sp))} channels x {stride}")
+    eh, ew = tables.env_hw if tables.env_hw is not None else (0, 0)
+    kernels.launch(
+        "shade_accumulate_launch", t, idx, typ, state_f, state_i, p,
+        *scalars, aparams, tables.rectab, tables.rectab.shape[0],
+        tables.mattab, tables.mattab.shape[0], tables.texmeta,
+        tables.texmeta.shape[0], tables.scan.counts[0], tables.scan.counts[1],
+        1 if tables.scan.counts[2] else 0, float(tables.atlas_hw[0]),
+        float(tables.atlas_hw[1]), 1 if tables.env_hw is not None else 0,
+        float(eh), float(ew), stride, next_work, segments, out_f, out_i, acc,
+        counts, next_out, seg_out, live_count, steps)
+    if sp.features:
+        shade_accumulate.features_launches += 1
+    else:
+        shade_accumulate.launches += 1
+    return out_f, out_i, next_out, seg_out, live_count, steps
+
+
+shade_accumulate.launches = 0
+shade_accumulate.features_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -978,18 +1087,10 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
     segments = torch.zeros((1,), dtype=torch.int64, device=dev)
     steps = torch.zeros((1,), dtype=torch.int64, device=dev)
 
-    # One flat accumulator, channel c at [c * stride, c * stride + n) and
-    # its dummy slot at c * stride + n; each step adds every channel of K3's
-    # outputs with one index_add_.
-    channels = acc_channels(sp)
+    # One flat accumulator, channel c at [c * stride, c * stride + n); K3
+    # fused adds each lane's finished values to it.
+    acc = new_accumulator(sp, dev)
     stride = n + 1
-    acc = torch.zeros((len(channels) * stride,), dtype=torch.float32,
-                      device=dev)
-    src_rows = torch.tensor([c for c, _ in channels], device=dev)
-    tgt_rows = torch.tensor([t for _, t in channels], device=dev)
-    offsets = (torch.arange(len(channels), dtype=torch.int64, device=dev)
-               * stride)[:, None]
-    same_rows = len(channels) == output_rows(sp)[0]
 
     lag = 1 if dev.type == "cpu" else LIVE_LAG
     pending = collections.deque([_host_copy(live_count)])
@@ -1001,15 +1102,11 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
             if int(live_host[0]) == 0:
                 break
         # Steps after the pool drains are no-ops: nothing is live, nothing
-        # spawns, and every target is the dummy slot n.
-        steps += (live_count > 0).to(torch.int64)
-        rec = trace_decode(tables, state_f[:6], aparams)
-        (state_f, state_i, contrib, tgt, next_work, segments,
-         live_count) = shade_advance(tables, rec, state_f, state_i, next_work,
-                                     segments, bparams, sp)
-        idx = tgt.index_select(0, tgt_rows).to(torch.int64) + offsets
-        vals = contrib if same_rows else contrib.index_select(0, src_rows)
-        acc.index_add_(0, idx.reshape(-1), vals.reshape(-1))
+        # spawns, nothing is added and the step count stays.
+        hits = k1.closest_hit(state_f[:6], T_MIN, tables.scan)
+        (state_f, state_i, next_work, segments, live_count,
+         steps) = shade_accumulate(tables, hits, state_f, state_i, next_work,
+                                   segments, steps, aparams, bparams, sp, acc)
         pending.append(_host_copy(live_count))
 
     order = ("beauty",) + aovs + (("reflection", "refraction") if want_spec

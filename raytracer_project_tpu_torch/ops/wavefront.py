@@ -4,7 +4,7 @@ A pool of lanes traces one path segment per step, and a lane whose path
 ended takes the next (pixel, sample) work item at once, so the work tracks
 the path segments and not samples x max_depth. Two engines:
 
-  * the fused pool (ops/fused_step.py, K1 -> K2 -> K3 per step): identity
+  * the fused pool (ops/fused_step.py, K1 -> K3 fused per step): identity
     full frames and identity pixel windows while the fused step covers
     the render. Renders past the 2^24 work-id cap are sample-chunked; lane
     RNG streams are (pixel, sample)-keyed, so the chunk sums equal one

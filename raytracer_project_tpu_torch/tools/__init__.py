@@ -15,7 +15,8 @@ on the card by default (CUDA kernels), on the CPU with `--device cpu`
 (the plain PyTorch versions). It prints the nvcc seconds of its source and
 the ms per launch, from CUDA events on the card (host clock on the CPU).
 Where the reference probe only compiled (P2-P4), the twin also runs and
-times the kernel.
+times the kernel. Beside the probes, `bench_turns` times two checkouts of
+the port in turns on one card.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ The reference engine's render thread and dirty-flag state machine
 
  * progressive accumulation in sample chunks: each `step` is one
    integrator.accumulate_samples call from the samples done so far on
-   (the fused pool on the card: K1, K2, K3), added into the session's sums;
+   (the fused pool on the card: K1, K3 fused), added into the session's sums;
  * every chunk counts its AOV samples against the whole render's budget
    (`aux_samples`, which is min(aux_samples, samples_per_pixel) for the
    samples of the render), so the progressive AOVs equal the one-shot

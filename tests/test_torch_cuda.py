@@ -263,7 +263,10 @@ def test_shade_advance_kernel_matches_plain(inputs, env_mode):
 
 @pytest.mark.cuda
 def test_render_goes_through_the_kernels(cuda, monkeypatch):
-    """The fused render launches K1-K3, K1 on the compact rows only."""
+    """The fused render launches K1 and K3 fused, K1 on the compact rows
+    only, and neither K2, the unfused K3 nor an index_add_."""
+    from torch.profiler import ProfilerActivity, profile
+
     entries = _record_entries(monkeypatch)
     scene = presets.showcase_scene()
     cam = tcam.make_camera(image_width=64, image_height=36, **CAM_KW)
@@ -272,17 +275,143 @@ def test_render_goes_through_the_kernels(cuda, monkeypatch):
     cfg = integrator.RenderConfig(width=64, height=36, samples_per_pixel=2,
                                   use_albedo=False, use_normal=False,
                                   use_z_depth=False)
-    for fn in (k1.closest_hit, fs.decode, fs.shade_advance):
+    for fn in (k1.closest_hit, fs.decode, fs.shade_advance,
+               fs.shade_accumulate):
         fn.launches = 0
-    out, stats = integrator.render(scene, cam, env, 0, cfg, with_stats=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, stats = integrator.render(scene, cam, env, 0, cfg,
+                                       with_stats=True)
     assert out["beauty"].device.type == "cuda"
-    assert all(fn.launches > 0 for fn in (k1.closest_hit, fs.decode,
-                                          fs.shade_advance))
+    assert k1.closest_hit.launches > 0 and fs.shade_accumulate.launches > 0
+    assert fs.decode.launches == 0 and fs.shade_advance.launches == 0
+    assert not [e.name for e in prof.events() if "index_add" in e.name]
+    assert "decode_launch" not in entries
+    assert (entries.count("shade_accumulate_launch")
+            == entries.count("closest_hit_od") > 0)
     assert stats["steps"] > 0 and stats["segments"] > 0
     img = out["beauty"].cpu()
     assert torch.isfinite(img).all() and img.max() > 0
     assert "closest_hit_od" in entries
     assert not [e for e in entries if e.endswith("_dense")]
+
+
+# K3 fused on random path states over real hits: beauty with one lane per
+# pixel, the variant with fog, every AOV and both passes, and a pixel
+# window with spec lanes.
+FUSED_CASES = ("beauty", "features", "window")
+
+
+def _fused_step_inputs(inputs, case):
+    """(tables, hits, aparams, bparams, sp, state_f, state_i, next_work,
+    segments) of one K3 fused step on the card at P lanes."""
+    scene, env, od = inputs
+    dev = od.device
+    r = np.random.default_rng(3)
+    features = case == "features"
+    spec = case != "beauty"
+    if features:
+        scene = presets.showcase_scene(use_fog=True,
+                                       fog_density=0.05).to(dev)
+    tables = fs.build_tables(scene, env.to(dev), tenv.PHYSICAL_SUN)
+    n, poff = (100_000, 123_457) if case == "window" else (800 * 450, 0)
+    # One lane per pixel, except the feature step: a beauty and a spec
+    # lane for each pixel (their adds go to different channels).
+    slots = (np.repeat(r.permutation(n)[:P // 2], 2) if features
+             else r.permutation(n)[:P])
+    rows_i = [r.random(P) < 0.85,
+              np.where(r.random(P) < 0.4, 0, r.integers(1, 13, P)),
+              r.integers(0, 4, P), poff + slots]
+    nf = 12
+    if spec:
+        rows_i += [np.arange(P) % 2 if features else r.random(P) < 0.5,
+                   r.random(P) < 0.3, r.random(P) < 0.3]
+        nf = 15
+    state_f = torch.cat([od, torch.as_tensor(r.uniform(
+        0.2, 1.5, (nf - 6, P)).astype(np.float32)).to(dev)]).contiguous()
+    state_i = torch.as_tensor(np.stack(rows_i).astype(np.int32)).to(dev)
+    n_beauty = n * 4
+    sp = fs.StepParams(
+        seed=rng.seed_from_int(7), sample_offset=2, n_pixels=n, width=800,
+        total_work=n_beauty * (2 if spec else 1), max_depth=10,
+        env_mode=tenv.PHYSICAL_SUN, aux=3, z_max=50.0,
+        aovs=fs.AOVS if spec else (), use_reflection=spec,
+        use_refraction=spec, n_beauty=n_beauty,
+        n_volumes=scene.volumes.count if features else 0, pixel_offset=poff)
+    cam = tcam.make_camera(image_width=800, image_height=450, **CAM_KW)
+    hits = k1.closest_hit(od, 1e-3, tables.scan)
+    return (tables, hits, fs._aparams(env, dev), fs._bparams(cam, env, dev),
+            sp, state_f, state_i,
+            torch.tensor([n_beauty - 9000], dtype=torch.int32, device=dev),
+            torch.tensor([11], dtype=torch.int64, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_shade_accumulate_kernel_matches_plain(inputs, case):
+    """K3 fused against its plain version (decode, unfused K3, index_add_
+    of the finishing lanes) on the same inputs: the state and counters as
+    K3's own test holds them (integers exact, floats within rtol/atol
+    1e-5); the accumulator within 1e-5, each address getting at most one
+    add in the step, and its dummy slots untouched. The feature step may
+    flip a fog flight on an ulp of logf: such lanes are at most 0.5% of
+    the pool, and their pixels are left out of the comparison."""
+    tables, hits, aparams, bparams, sp, sf, si, nw, seg = _fused_step_inputs(
+        inputs, case)
+    dev = sf.device
+    accs, outs = [], []
+    for fn in (fs.shade_accumulate, fs.shade_accumulate_plain):
+        acc = fs.new_accumulator(sp, dev)
+        steps = torch.zeros(1, dtype=torch.int64, device=dev)
+        outs.append(fn(tables, hits, sf, si, nw, seg, steps, aparams,
+                       bparams, sp, acc))
+        accs.append(acc.view(len(fs.acc_channels(sp)), sp.n_pixels + 1))
+    (out, ref), n = outs, sp.n_pixels
+    bad = torch.zeros(P, dtype=torch.bool, device=dev)
+    for a, b in zip(out[:2], ref[:2]):
+        if a.dtype.is_floating_point:
+            bad |= ~torch.isclose(a, b, rtol=1e-5, atol=1e-5).all(0)
+        else:
+            bad |= (a != b).any(0)
+    assert float(bad.float().mean()) <= (0.005 if case == "features" else 0.0)
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    keep[si[3][bad].long() - sp.pixel_offset] = False
+    torch.testing.assert_close(accs[0][:, :n][:, keep],
+                               accs[1][:, :n][:, keep], rtol=1e-5, atol=1e-5)
+    assert not accs[0][:, n].any()
+    assert bool((accs[0][:, :n].abs().sum(1) > 0).all())
+    assert int(out[3]) == int(ref[3]) and int(out[5]) == int(ref[5]) == 1
+    if not bool(bad.any()):
+        assert torch.equal(out[2], ref[2]) and torch.equal(out[4], ref[4])
+    li = out[1][3]
+    assert bool(((li >= sp.pixel_offset)
+                 & (li < sp.pixel_offset + n)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size, pool", [((64, 36), None), ((128, 72), 8192)])
+def test_fused_render_twice_on_card(cuda, size, pool):
+    """The showcase at 8 spp rendered twice on the card: 64x36 with the
+    default pool (4,096 lanes, above its 2,304 pixels: two samples of a
+    pixel can finish in one step, and K3 fused adds them in no fixed
+    order) and 128x72 with 8,192 lanes, at or below its 9,216 pixels.
+    Whether the two renders are bit-identical is printed, not assumed;
+    they agree within rtol/atol 3e-4 and trace the same segments."""
+    w, h = size
+    cam = tcam.make_camera(image_width=w, image_height=h, **CAM_KW)
+    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
+                                sun_intensity=6.0)
+    cfg = integrator.RenderConfig(width=w, height=h, samples_per_pixel=8,
+                                  pool_lanes=pool)
+    scene = presets.showcase_scene().to(cuda)
+    runs = [integrator.render(scene, cam, env, 0, cfg, with_stats=True)
+            for _ in range(2)]
+    (a, sa), (b, sb) = runs
+    assert sa["segments"] == sb["segments"]
+    for name in a:
+        d = float((a[name] - b[name]).abs().max())
+        print(f"{w}x{h} pool {pool or 'default'} {name}: bit-identical "
+              f"{torch.equal(a[name], b[name])}, max |d| {d:.3g}")
+        torch.testing.assert_close(a[name], b[name], rtol=3e-4, atol=3e-4)
 
 
 @pytest.mark.cuda
@@ -388,12 +517,13 @@ def test_features_render_matches_cpu(cuda, monkeypatch):
     cpu = integrator.render(scene, cam, env, 0, cfg, device="cpu")
     plain_calls = []
     for mod, name in ((k1, "closest_hit_plain"), (fs, "decode_plain"),
-                      (fs, "shade_advance_plain")):
+                      (fs, "shade_advance_plain"),
+                      (fs, "shade_accumulate_plain")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
                             plain_calls.append(_n))
-    fs.shade_advance.features_launches = 0
+    fs.shade_accumulate.features_launches = 0
     card = integrator.render(scene, cam, env, 0, cfg)
-    assert not plain_calls and fs.shade_advance.features_launches > 0
+    assert not plain_calls and fs.shade_accumulate.features_launches > 0
     for name, ref in cpu.items():
         img = card[name].cpu().numpy()
         d = np.abs(img - ref.numpy())
@@ -556,12 +686,15 @@ def test_scene_golden_on_card(cuda, name, engine):
     under the cross-backend budgets."""
     scene, cam, env, cfg = goldens.golden_config(name)
     cfg = dataclasses.replace(cfg, wavefront=engine == "fused")
-    counters = ((k1.closest_hit_feats,) if engine == "chunked"
-                else (k1.closest_hit, fs.decode))
-    for fn in counters:
-        fn.launches = 0
+    counters = (((k1.closest_hit_feats, "launches"),) if engine == "chunked"
+                else ((k1.closest_hit, "launches"),
+                      (fs.shade_accumulate, "launches"),
+                      (fs.shade_accumulate, "features_launches")))
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
     img = integrator.render(scene, cam, env, 0, cfg)["beauty"].cpu().numpy()
-    assert all(fn.launches > 0 for fn in counters)
+    counts = [getattr(fn, attr) for fn, attr in counters]
+    assert counts[0] > 0 and (engine == "chunked" or sum(counts[1:]) > 0)
     assert np.isfinite(img).all() and img.max() > 0
     mean, frac = goldens.golden_diff(img, name)
     assert mean <= 0.06 and frac <= 0.20, (mean, frac)
@@ -703,10 +836,10 @@ def test_unfused_pool_smoke_golden_on_card(cuda, monkeypatch):
     cfg = integrator.RenderConfig(width=128, height=72, samples_per_pixel=4,
                                   use_albedo=False, use_normal=False,
                                   use_z_depth=False)
-    k1.closest_hit.launches = fs.shade_advance.launches = 0
+    k1.closest_hit.launches = fs.shade_accumulate.launches = 0
     out, st = integrator.render(scene, cam, env, 0, cfg, with_stats=True)
     assert st["engine"] == "pool" and k1.closest_hit.launches > 0
-    assert fs.shade_advance.launches == 0
+    assert fs.shade_accumulate.launches == 0
     img = out["beauty"].cpu().numpy()
     golden = np.load(goldens.GOLDEN_DIR / "smoke_pool_128x72.npz")["beauty"]
     d = np.abs(img - golden)
@@ -857,7 +990,7 @@ def _k1_on_the_cpu(od, tmin, tables):
 @pytest.mark.cuda
 def test_session_on_card_matches_cpu(cuda, monkeypatch):
     """A 64x36 @ 8 spp showcase session in chunks of 2 (AOVs on) on the
-    card: K1-K3 launch and no plain version runs; every buffer equals the
+    card: K1 and K3 fused launch and no plain version runs; every buffer equals the
     card's one-shot render up to float reassociation (rtol/atol 3e-4).
     Against the CPU session the card's K1 sums t in another order than its
     plain version, within the closest-hit budgets, so a few paths take
@@ -870,17 +1003,16 @@ def test_session_on_card_matches_cpu(cuda, monkeypatch):
     cpu.render_progressive(8)
     plain_calls = []
     for mod, name in ((k1, "closest_hit_plain"), (fs, "decode_plain"),
-                      (fs, "shade_advance_plain")):
+                      (fs, "shade_advance_plain"),
+                      (fs, "shade_accumulate_plain")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
                             plain_calls.append(_n))
-    for fn, attr in ((k1.closest_hit, "launches"), (fs.decode, "launches"),
-                     (fs.shade_advance, "features_launches")):
-        setattr(fn, attr, 0)
+    k1.closest_hit.launches = fs.shade_accumulate.features_launches = 0
     card = _showcase_session(cuda)
     card.render_progressive(8)
     assert not plain_calls
-    assert k1.closest_hit.launches > 0 and fs.decode.launches > 0
-    assert fs.shade_advance.features_launches > 0
+    assert k1.closest_hit.launches > 0
+    assert fs.shade_accumulate.features_launches > 0
     one = integrator.render(card.scene, card.camera, card.env, 0, card.config)
     want = cpu.buffers()
     for name, img in card.buffers().items():
@@ -896,16 +1028,16 @@ def test_session_on_card_matches_cpu(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_session_on_card_with_k1_replayed_matches_cpu(cuda, monkeypatch):
     """The session above with K1's hits taken from its plain version on the
-    CPU and K2, K3 on the card: every buffer holds the CPU session's under
+    CPU and K3 fused on the card: every buffer holds the CPU session's under
     the full tie-robust rule, so the free-running difference above comes
     from K1's summation order alone."""
     cpu = _showcase_session("cpu")
     cpu.render_progressive(8)
     monkeypatch.setattr(k1, "closest_hit", _k1_on_the_cpu)
-    fs.decode.launches = fs.shade_advance.features_launches = 0
+    fs.shade_accumulate.features_launches = 0
     card = _showcase_session(cuda)
     card.render_progressive(8)
-    assert fs.decode.launches > 0 and fs.shade_advance.features_launches > 0
+    assert fs.shade_accumulate.features_launches > 0
     want = cpu.buffers()
     for name, img in card.buffers().items():
         _tie_robust(name, img, want[name])

@@ -6,6 +6,7 @@ sample chunking with the whole render's AOV budget; the default render."""
 
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -14,10 +15,12 @@ import torch
 import jax.numpy as jnp
 
 from raytracer_project_tpu.ops import fused_step as jfs
+from raytracer_project_tpu_torch.core.constants import T_MIN
 from raytracer_project_tpu_torch.models import camera as tcam
 from raytracer_project_tpu_torch.models import environment as tenv
 from raytracer_project_tpu_torch.models import presets as tpresets
 from raytracer_project_tpu_torch.models.scene import SceneBuilder
+from raytracer_project_tpu_torch.ops import closest_hit as tk1
 from raytracer_project_tpu_torch.ops import fused_step as tfs
 from raytracer_project_tpu_torch.ops import integrator as tint
 from raytracer_project_tpu_torch.ops import wavefront as twf
@@ -80,15 +83,12 @@ CONFIGS = {
 }
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_shade_advance_variant_matches_reference(fog_scene, name):
-    """P = 8192 lanes (two of the reference's 4096-lane blocks, so the
-    respawn carry crosses a block), a random path state on decoded hits
-    with 40% of the lanes at bounce 0 and half of them spec lanes; next_work
-    leaves less work than there are free lanes. Lanes on which any output
-    differs may be at most FLIP_BUDGET of the pool (each is logged); on all
-    others integer rows and targets are equal and float rows within 1e-5
-    abs + 1e-5 rel."""
+def _variant_step(fog_scene, name, reference=True):
+    """One step of K3's variant `name` on P = 8192 lanes and the
+    reference's Pallas kernel (interpret mode) on the same inputs: the
+    inputs and plain outputs of the port, and the reference's outputs in
+    the port's layout (ref_f, ref_i, ref_c, ref_t) with its counters
+    (None without `reference`)."""
     cfg = CONFIGS[name]
     env_mode = cfg.get("env_mode", tenv.PHYSICAL_SUN)
     p, n_pix, spp = 8192, 64 * 36, 4
@@ -129,6 +129,12 @@ def test_shade_advance_variant_matches_reference(fog_scene, name):
         torch.tensor([5], dtype=torch.int64), bparams, sp)
     new_f, new_i, contrib, tgt, nw, seg, lc = out
     assert tfs.output_rows(sp) == (contrib.shape[0], tgt.shape[0])
+    step = types.SimpleNamespace(
+        cfg=cfg, p=p, n_pix=n_pix, tables=tables, rec=rec,
+        state_f=state_f, state_i=state_i, bparams=bparams, sp=sp, env=env,
+        next_work=next_work, out=out)
+    if not reference:
+        return step
 
     recn = rec.numpy()
     gather = lambda tab, rows, k: tuple(jnp.asarray(tab.numpy()[rows, c])
@@ -172,17 +178,45 @@ def test_shade_advance_variant_matches_reference(fog_scene, name):
         ref_t.append(ref[k + na])
     if want_spec:
         ref_t += spec_t
-    pairs = [(new_f.numpy(), np.stack(ref_f), False),
-             (new_i.numpy(), np.stack(ref_i), True),
-             (contrib.numpy(), np.stack(ref_c), False),
-             (tgt.numpy(), np.stack(ref_t), True)]
-    bad = np.zeros(p, bool)
+    step.__dict__.update(recn=recn, ref=ref, ref_f=ref_f, ref_i=ref_i,
+                         ref_c=ref_c, ref_t=ref_t)
+    return step
+
+
+def _differing_lanes(s):
+    """Lanes on which any output of the port's step differs from the
+    reference's: integer rows and targets exactly, float rows beyond 1e-5
+    abs + 1e-5 rel."""
+    new_f, new_i, contrib, tgt = s.out[:4]
+    pairs = [(new_f.numpy(), np.stack(s.ref_f), False),
+             (new_i.numpy(), np.stack(s.ref_i), True),
+             (contrib.numpy(), np.stack(s.ref_c), False),
+             (tgt.numpy(), np.stack(s.ref_t), True)]
+    bad = np.zeros(s.p, bool)
     for a, b, exact in pairs:
         assert a.shape == b.shape
         if exact:
             bad |= (a != b).any(0)
         else:
             bad |= ~np.isclose(a, b, rtol=1e-5, atol=1e-5).all(0)
+    return bad
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_shade_advance_variant_matches_reference(fog_scene, name):
+    """P = 8192 lanes (two of the reference's 4096-lane blocks, so the
+    respawn carry crosses a block), a random path state on decoded hits
+    with 40% of the lanes at bounce 0 and half of them spec lanes; next_work
+    leaves less work than there are free lanes. Lanes on which any output
+    differs may be at most FLIP_BUDGET of the pool (each is logged); on all
+    others integer rows and targets are equal and float rows within 1e-5
+    abs + 1e-5 rel."""
+    s = _variant_step(fog_scene, name)
+    cfg, p, n_pix, sp = s.cfg, s.p, s.n_pix, s.sp
+    want_spec, state_i, recn, ref = cfg["want_spec"], s.state_i, s.recn, s.ref
+    new_f, new_i, contrib, tgt, nw, seg, lc = s.out
+    ref_f, ref_i, ref_c, ref_t = s.ref_f, s.ref_i, s.ref_c, s.ref_t
+    bad = _differing_lanes(s)
     for lane in np.flatnonzero(bad):
         print(f"{name}: lane {lane} differs: bounce {state_i[1, lane]} "
               f"hit {recn[tfs._RO_HIT, lane]:.0f} mtype "
@@ -199,6 +233,70 @@ def test_shade_advance_variant_matches_reference(fog_scene, name):
         assert tgt[-2:].lt(n_pix).any()
     if cfg["aovs"]:
         assert tgt[1].lt(n_pix).any()
+
+
+def _accumulated_variant(s):
+    """K3 fused's plain version on the inputs of _variant_step: its
+    outputs and the accumulator as [channels, n + 1]."""
+    state_f = torch.as_tensor(s.state_f)
+    hits = tk1.closest_hit(state_f[:6], T_MIN, s.tables.scan)
+    acc = tfs.new_accumulator(s.sp, "cpu")
+    out = tfs.shade_accumulate(
+        s.tables, hits, state_f, torch.as_tensor(s.state_i),
+        torch.tensor([s.next_work], dtype=torch.int32),
+        torch.tensor([5], dtype=torch.int64), torch.zeros(1, dtype=torch.int64),
+        tfs._aparams(s.env, "cpu"), s.bparams, s.sp, acc)
+    return out, acc.view(len(tfs.acc_channels(s.sp)), s.sp.n_pixels + 1)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_shade_accumulate_plain_is_the_unfused_variant_step(fog_scene, name):
+    """K3 fused's plain version in each feature variant equals, bit for
+    bit, shade_advance_plain's step followed by one index_add_ of every
+    channel with the idle lanes on the dummy slot (the pool's step before
+    K3 fused); the pool (8,192 lanes) is larger than the 2,304 pixels, so
+    several lanes of one pixel finish in the step, in every channel the
+    variant has."""
+    s = _variant_step(fog_scene, name, reference=False)
+    out, acc = _accumulated_variant(s)
+    _, _, contrib, tgt, nw, seg, lc = s.out
+    chans = tfs.acc_channels(s.sp)
+    stride = s.n_pix + 1
+    idx = (tgt[[t for _, t in chans]].to(torch.int64)
+           + torch.arange(len(chans))[:, None] * stride)
+    old = torch.zeros(len(chans) * stride).index_add_(
+        0, idx.reshape(-1), contrib[[c for c, _ in chans]].reshape(-1))
+    old = old.view(len(chans), stride)
+    assert torch.equal(acc[:, :s.n_pix], old[:, :s.n_pix])
+    assert not acc[:, s.n_pix].any()
+    for a, b in zip(out[:5], (s.out[0], s.out[1], nw, seg, lc)):
+        assert torch.equal(a, b)
+    for c, t in chans:
+        real = tgt[t][tgt[t] < s.n_pix]
+        assert len(real) > len(torch.unique(real)), (c, t)
+
+
+@pytest.mark.parametrize("name", ["all", "all_hdr"])
+def test_shade_accumulate_matches_reference_scatter_with_features(fog_scene,
+                                                                  name):
+    """Fog, every AOV and both split passes: the accumulated channels
+    against np.add.at of the reference step's contributions at its
+    targets, within rtol/atol 3e-4 (the reassociation budget), on every
+    pixel that no lane of _differing_lanes (at most FLIP_BUDGET of the
+    pool) finishes into."""
+    s = _variant_step(fog_scene, name)
+    _, acc = _accumulated_variant(s)
+    want = np.zeros(tuple(acc.shape), np.float32)
+    for ch, (c, t) in enumerate(tfs.acc_channels(s.sp)):
+        np.add.at(want[ch], s.ref_t[t], s.ref_c[c])
+    bad = _differing_lanes(s)
+    assert bad.mean() <= FLIP_BUDGET, bad.mean()
+    keep = np.ones(s.n_pix, bool)
+    keep[s.state_i[3][bad]] = False
+    np.testing.assert_allclose(acc[:, :s.n_pix].numpy()[:, keep],
+                               want[:, :s.n_pix][:, keep], rtol=3e-4,
+                               atol=3e-4)
+    assert (acc[:, :s.n_pix].abs().sum(1) > 0).all()
 
 
 def _features_cfg(w, h, spp, **kw):

@@ -18,7 +18,10 @@ from raytracer_project_tpu.models import environment as jenv
 from raytracer_project_tpu.models import presets as jpresets
 from raytracer_project_tpu.ops import fused_step as jfs
 from raytracer_project_tpu_torch.models import environment as tenv
+from raytracer_project_tpu_torch.core.constants import T_MIN
+from raytracer_project_tpu_torch.models import camera as tcam
 from raytracer_project_tpu_torch.models import presets as tpresets
+from raytracer_project_tpu_torch.ops import closest_hit as tk1
 from raytracer_project_tpu_torch.ops import fused_step as tfs
 
 torch.set_num_threads(2)
@@ -172,3 +175,163 @@ def test_shade_advance_matches_reference(scenes, env_mode):
     spawned = int(((new_i[0] == 1) & (new_i[1] == 0)).sum())
     assert spawned == sp.total_work - next_work
     assert int(nw) == sp.total_work
+
+
+# --- K3 fused: decode, shade, advance and accumulate in one step -----------
+
+# Beauty steps of P = 8192 lanes: the pool smaller than the pixel count
+# with one lane per pixel, a pixel window (pixel_offset > 0) of the same
+# frame, and a pool larger than the pixel count, where several lanes of
+# one pixel finish in the same step.
+STEP_CASES = {
+    "beauty": dict(n_pixels=128 * 72, pixel_offset=0, one_lane_per_pixel=True),
+    "window": dict(n_pixels=8192, pixel_offset=1024, one_lane_per_pixel=True),
+    "pool_over_pixels": dict(n_pixels=64 * 36, pixel_offset=0,
+                             one_lane_per_pixel=False),
+}
+
+
+def _step_inputs(ts, case):
+    """(tables, hits, aparams, bparams, sp, state_f, state_i, next_work,
+    segments) of one beauty step: decoded hits of random rays (as
+    _k3_inputs) on a random path state whose pixels follow the case."""
+    c = STEP_CASES[case]
+    p, n, poff = 8192, c["n_pixels"], c["pixel_offset"]
+    r = np.random.default_rng(5)
+    o, d = _rays(p, 5)
+    tables = _port_tables(ts, tenv.PHYSICAL_SUN)
+    env = tenv.make_environment(**ENV_KW)
+    cam = tcam.make_camera(image_width=128, image_height=72, vfov=30.0,
+                           lookfrom=(12.0, 2.5, 6.0), lookat=(0.0, 1.0, 0.0))
+    sp = tfs.StepParams(seed=0x9E3779B9, sample_offset=3, n_pixels=n,
+                        width=128, total_work=n * 4, max_depth=10,
+                        env_mode=tenv.PHYSICAL_SUN, pixel_offset=poff)
+    slots = (r.permutation(n)[:p] if c["one_lane_per_pixel"]
+             else r.integers(0, n, p))
+    state_f = np.concatenate([
+        o.T, d.T, r.uniform(0.0, 1.0, (3, p)), r.uniform(0.0, 2.0, (3, p)),
+    ]).astype(np.float32)
+    state_i = np.stack([(r.random(p) < 0.85), r.integers(0, 13, p),
+                        r.integers(0, 4, p), poff + slots]).astype(np.int32)
+    state_f = torch.as_tensor(state_f)
+    hits = tk1.closest_hit(state_f[:6], T_MIN, tables.scan)
+    return (tables, hits, tfs._aparams(env, "cpu"), tfs._bparams(cam, env, "cpu"),
+            sp, state_f, torch.as_tensor(state_i),
+            torch.tensor([sp.total_work - 1200], dtype=torch.int32),
+            torch.tensor([5], dtype=torch.int64))
+
+
+def _accumulated_step(scenes, case):
+    """The inputs of `case` and K3 fused's plain version run on them:
+    (inputs, its outputs, the accumulator as [channels, n + 1])."""
+    inputs = _step_inputs(scenes[1], case)
+    tables, hits, aparams, bparams, sp, sf, si, nw, seg = inputs
+    acc = tfs.new_accumulator(sp, "cpu")
+    steps = torch.zeros(1, dtype=torch.int64)
+    out = tfs.shade_accumulate(tables, hits, sf, si, nw, seg, steps, aparams,
+                               bparams, sp, acc)
+    assert out[5] is steps and int(steps) == 1
+    return inputs, out, acc.view(len(tfs.acc_channels(sp)), sp.n_pixels + 1)
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_shade_accumulate_plain_is_the_unfused_step(scenes, case):
+    """K3 fused's plain version equals, bit for bit, the step it replaces
+    on the main path: trace_decode, shade_advance_plain, then one
+    index_add_ of every channel with the idle lanes on the dummy slot n;
+    it leaves the dummy slots at zero."""
+    inputs, out, acc = _accumulated_step(scenes, case)
+    tables, hits, aparams, bparams, sp, sf, si, nw, seg = inputs
+    rec = tfs.trace_decode(tables, sf[:6], aparams)
+    ref = tfs.shade_advance_plain(tables, rec, sf, si, nw, seg, bparams, sp)
+    chans = tfs.acc_channels(sp)
+    stride = sp.n_pixels + 1
+    idx = (ref[3][[t for _, t in chans]].to(torch.int64)
+           + torch.arange(len(chans))[:, None] * stride)
+    old = torch.zeros(len(chans) * stride).index_add_(
+        0, idx.reshape(-1), ref[2][[c for c, _ in chans]].reshape(-1))
+    old = old.view(len(chans), stride)
+    n = sp.n_pixels
+    assert torch.equal(acc[:, :n], old[:, :n])
+    assert not acc[:, n].any()
+    for a, b in zip(out[:5], (ref[0], ref[1], ref[4], ref[5], ref[6])):
+        assert torch.equal(a, b)
+    finished = ref[3][0][ref[3][0] < n]
+    assert len(finished) > 100
+    many = len(finished) > len(torch.unique(finished))
+    assert many == (case == "pool_over_pixels")
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_shade_accumulate_matches_reference_scatter(scenes, case):
+    """The accumulated channels against np.add.at of the reference step's
+    contributions at its targets (jfs.shade_advance in interpret mode on
+    the same record rows, texel rows gathered outside as its seam does),
+    within rtol/atol 3e-4, the reassociation budget."""
+    inputs, out, acc = _accumulated_step(scenes, case)
+    tables, hits, aparams, bparams, sp, sf, si, nw, seg = inputs
+    rec = tfs.decode_plain(tables, sf[:6], *hits, aparams).numpy()
+    trow = np.clip(rec[tfs._RO_TEXROW], 0, None).astype(np.int32)
+    brow = np.clip(rec[tfs._RO_BUMPROW], 0, None).astype(np.int32)
+    gather = lambda tab, rows, k: tuple(jnp.asarray(tab.numpy()[rows, c])
+                                        for c in range(k))
+    iscal = jnp.asarray(np.array([[np.uint32(sp.seed).view(np.int32),
+                                   int(nw[0]), sp.sample_offset,
+                                   sp.pixel_offset]], np.int32))
+    ref = jfs.shade_advance(
+        None, iscal, jnp.asarray([[5.0, 0.0]], jnp.float32),
+        jnp.asarray(bparams.numpy()).reshape(1, 40),
+        tuple(jnp.asarray(x) for x in rec), gather(tables.atlas_rows, trow, 3),
+        gather(tables.grad_rows, brow, 2),
+        gather(tables.env_rows, np.zeros_like(trow), 3),
+        tuple(jnp.asarray(x) for x in sf.numpy())
+        + tuple(jnp.asarray(x) for x in si.numpy()),
+        n_pixels=sp.n_pixels, width=sp.width, total_work=sp.total_work,
+        max_depth=sp.max_depth, env_mode=sp.env_mode, spp=4, aux=0,
+        z_max=50.0, aovs=(), interpret=True)
+    want = np.zeros((3, sp.n_pixels + 1), np.float32)
+    for c in range(3):
+        np.add.at(want[c], np.asarray(ref[19]), np.asarray(ref[16 + c]))
+    n = sp.n_pixels
+    np.testing.assert_allclose(acc[:, :n].numpy(), want[:, :n], rtol=3e-4,
+                               atol=3e-4)
+    assert float(acc.sum()) > 0
+    np.testing.assert_array_equal(out[1].numpy(),
+                                  np.stack([np.asarray(x) for x in ref[12:16]]))
+
+
+@pytest.mark.parametrize("features", [False, True])
+def test_k3_wrappers_pass_their_c_signatures(scenes, features, monkeypatch):
+    """The CUDA branches of shade_advance and shade_accumulate, driven with
+    meta tensors: each launch passes as many arguments as its C entry's
+    ctypes signature has (the stream last), a tensor exactly where the
+    signature has a pointer."""
+    from raytracer_project_tpu_torch import kernels
+
+    seen = []
+
+    def launch(entry, *args):
+        types = kernels.SIGNATURES[entry][1]
+        assert len(args) + 1 == len(types), entry
+        for k, (a, t) in enumerate(zip(args, types)):
+            assert isinstance(a, torch.Tensor) == (t is kernels._P), (entry, k)
+        seen.append(entry)
+
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(kernels, "launch", launch)
+    tables = _port_tables(scenes[1], tenv.PHYSICAL_SUN)
+    sp = tfs.StepParams(seed=1, sample_offset=0, n_pixels=100, width=10,
+                        total_work=400, max_depth=5, env_mode=0,
+                        aovs=tfs.AOVS if features else (),
+                        use_reflection=features, use_refraction=features,
+                        n_beauty=200)
+    meta = lambda shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device="meta")
+    p, i32, i64 = 512, torch.int32, torch.int64
+    nf, ni = tfs.state_rows(sp)
+    state = (meta((nf, p)), meta((ni, p), i32), meta(1, i32), meta(1, i64))
+    tfs.shade_advance(tables, meta((tfs._RO_ROWS, p)), *state, meta(40), sp)
+    acc = meta(len(tfs.acc_channels(sp)) * (sp.n_pixels + 1))
+    tfs.shade_accumulate(tables, (meta(p), meta(p, i32), meta(p, i32)),
+                         *state, meta(1, i64), meta(8), meta(40), sp, acc)
+    assert seen == ["shade_advance_launch", "shade_accumulate_launch"]
