@@ -57,12 +57,19 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                and checked for the work it keeps; full and nocull against
                K1 bit for bit), then K1's time split by P1 on the main
                path's bounce rays, the dense scan's beside it; P2 and P4,
-               the one-hot row fetch in six layouts; P3, the decode
-               stages d0-d2 and d3 (= K2) on K1's hits of the showcase
-               camera rays. Each variant runs through its entry with the
-               counts read around it, is held against its plain version
-               on the card, and is timed with its bound; last an empty
-               kernel timed the same way, the launch floor under P2-P4;
+               the one-hot row fetch in six layouts (in place and with the
+               table staged in shared memory); P3, the decode stages d0-d2
+               and d3 (= K2) on K1's hits of the showcase camera rays. Each
+               variant runs through its entry with the counts read around
+               it, is held against its plain version on the card, and is
+               timed with its bound; P2-P4 and d0-d2 also equal their
+               yardsticks (the first port's kernels) bit for bit and are
+               timed beside them, with what sets their times (registers,
+               stack frames, the fetch's ms per output, the stages on lanes
+               sorted by primitive type, staging against lane count); last
+               an empty kernel timed the same way, the launch floor under
+               P2-P4, with each row's share of its bound with and without
+               it;
  11. scenes smoke  the goldens past the showcase (Shirley, the foggy
                Cornell box, the HDRI scene) through integrator.render on
                both engines against the reference's CPU goldens;
@@ -132,7 +139,10 @@ from P3's d3 run, none on the main path; K3 fused's window variant as
 window_*, K4's sort_rays numbers and its diff_launches and diff_ms on the
 differentiable path; session_launches of K1 and K3 fused on F1's session
 frame and K4's wire_launches in F4; K1's split by P1 on both bounce sets
-as split; P1's dense yardstick as P1_dense.*; the launch floor with P2-P4),
+as split; P1's dense yardstick as P1_dense.*; P2-P4's and d0-d2's
+yardstick_ms, P2-P4's in_place_ms and staged_ms, the 8,192-lane times as
+*_8192, the shares of the bound, and under P2 "causes" the readings of
+both builds; the launch floor with P2-P4),
 the nvidia-smi line, and the device JSON line last.
 Takes no arguments and always runs every phase.
 Exits non-zero without a CUDA device, and outside a checkout of the repo.
@@ -192,10 +202,11 @@ NEAR_ORIGIN = 0.02
 FUSED_KERNELS = ("closest_hit", "shade_advance")
 FEATURES_KERNELS = ("closest_hit", "shade_advance_features")
 CHUNKED_KERNELS = ("closest_hit_feats",)
-# K2 and the unfused K3: K3 fused's yardstick (and P3's d3), never
-# launched on a render path.
+# K2 and the unfused K3: K3 fused's yardstick (and P3's d3), and the
+# yardsticks of P2/P4 and P3: never launched on a render path.
 YARDSTICKS = ("decode", "shade_advance_unfused",
-              "shade_advance_unfused_features")
+              "shade_advance_unfused_features", "onehot_fetch_scalar",
+              "decode_stage_scalar")
 # The unfused pool: K1 and none of K3 fused.
 UNFUSED_CHECK = ("closest_hit", "shade_advance", "shade_advance_features")
 _T0 = time.perf_counter()
@@ -990,7 +1001,9 @@ def _counters():
             "ablate": (pa.ablate, "launches"),
             "ablate_dense": (pa.ablate_dense, "launches"),
             "onehot_fetch": (po.onehot_fetch, "launches"),
-            "decode_stage": (pd.decode_stage, "launches")}
+            "onehot_fetch_scalar": (po.onehot_fetch_scalar, "launches"),
+            "decode_stage": (pd.decode_stage, "launches"),
+            "decode_stage_scalar": (pd.decode_stage_scalar, "launches")}
 
 
 def _reset_counters():
@@ -1595,9 +1608,9 @@ def sass_opcodes(source: str) -> dict:
 
 
 def ptxas_resources(source: str) -> dict:
-    """Registers and spill-store bytes of each kernel of csrc/<source>.cu
-    from its build log (nvcc -Xptxas -v): mangled name -> (registers,
-    spill bytes)."""
+    """Registers, spill-store bytes and stack frame bytes of each kernel of
+    csrc/<source>.cu from its build log (nvcc -Xptxas -v): mangled name ->
+    (registers, spill bytes, stack bytes)."""
     import re
 
     from raytracer_project_tpu_torch import kernels
@@ -1607,10 +1620,10 @@ def ptxas_resources(source: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1)
-            out[cur] = [0, 0]
-        m = re.search(r"(\d+) bytes spill stores", line)
+            out[cur] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if m and cur:
-            out[cur][1] = int(m.group(1))
+            out[cur][2], out[cur][1] = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             out[cur][0] = int(m.group(1))
@@ -1621,13 +1634,16 @@ def _kernel_code(source: str, tag: str) -> dict:
     """{mangled name: (SASS opcode counts, (registers, spill bytes))} of the
     kernels of csrc/<source>.cu whose name holds `tag`."""
     res = ptxas_resources(source)
-    return {name: (ops, res.get(name, (None, None)))
+    return {name: (ops, res.get(name, (None, None, None)))
             for name, ops in sass_opcodes(source).items() if tag in name}
 
 
 def _log_code(label: str, ops: dict, res) -> None:
     log(f"  SASS {label}: {sum(ops.values())} instructions, {res[0]} "
-        f"registers, {res[1]} B spilled; FFMA {ops.get('FFMA', 0)}, MUFU "
+        f"registers, {res[1]} B spilled, {res[2]} B stack; LDG "
+        f"{ops.get('LDG', 0)}, STG {ops.get('STG', 0)}, LDL "
+        f"{ops.get('LDL', 0)}, STL {ops.get('STL', 0)}, BRA "
+        f"{ops.get('BRA', 0)}; FFMA {ops.get('FFMA', 0)}, MUFU "
         f"{ops.get('MUFU', 0)}, FSETP {ops.get('FSETP', 0)}, LDGSTS "
         f"{ops.get('LDGSTS', 0)}, LDS {ops.get('LDS', 0)}, BAR "
         f"{ops.get('BAR', 0)}, VOTE {ops.get('VOTE', 0)}")
@@ -1765,11 +1781,24 @@ def _probe_p1(results: dict) -> None:
              t_k1)
 
 
+def _bits_differ(out, ref) -> int:
+    """Values of two f32 results (tensors or tuples of them) whose bits
+    differ."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    return sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+               for a, b in zip(out, ref))
+
+
 def _probe_onehot(results: dict) -> None:
     """P2 and P4's five layouts at the pool's width: each through its entry
     (`main`) with the counts read around it, against the plain version on a
-    random table and indices in [-2, n_rows + 2) (exact), timed there and
-    at the probes' 8,192 lanes, beside index_select + add."""
+    random table and indices in [-2, n_rows + 2) (exact) and against its
+    yardstick (the first port's kernel) bit for bit, timed there and at the
+    probes' 8,192 lanes beside the yardstick, the fetch in place and staged
+    (the modes with a table; the entry picks one) and index_select + add."""
     import torch
 
     from raytracer_project_tpu_torch.tools import probe_onehot as po
@@ -1790,11 +1819,19 @@ def _probe_onehot(results: dict) -> None:
         for p in (P_MAIN, 8192):
             t, idx, table = po.make_inputs(n_rows, p, transposed, seed=1,
                                            device=dev)
-            out = po.onehot_fetch(t, idx, table, n_out, mode)
+            fn = lambda: po.onehot_fetch(t, idx, table, n_out, mode)
+            scalar = lambda: po.onehot_fetch_scalar(t, idx, table, n_out, mode)
+            in_place = lambda: po.onehot_fetch(t, idx, table, n_out, mode,
+                                               staged=False)
+            staged = lambda: po.onehot_fetch(t, idx, table, n_out, mode,
+                                             staged=True)
             ref = po.onehot_fetch_plain(t, idx, table, n_out, mode)
-            torch.cuda.synchronize()
-            bad = sum(int((a != b).sum()) for a, b in zip(out, ref))
-            check(bad == 0, f"{name} p={p}: {bad} values differ")
+            for label, f in (("kernel", fn), ("in place", in_place),
+                             ("yardstick", scalar)) + (
+                    () if plain else (("staged", staged),)):
+                bad = _bits_differ(f(), ref)
+                check(bad == 0, f"{name} {label} p={p}: {bad} values differ "
+                      "from the plain version")
             # The library's fetch: index_select of the table with a zero
             # row appended, indices mapped beforehand (outside: that row),
             # then the add of t; it fetches all 28 columns.
@@ -1809,20 +1846,29 @@ def _probe_onehot(results: dict) -> None:
             else:
                 tab1 = torch.cat([table, table.new_zeros(1, 28)])
                 lib = lambda: torch.index_select(tab1, 0, row).add_(t[:, None])
-            fn = lambda: po.onehot_fetch(t, idx, table, n_out, mode)
             sizes[p] = dict(
                 ms=time_ms(f"{name} p={p}", fn),
+                yardstick_ms=time_ms(f"{name} yardstick p={p}", scalar),
+                in_place_ms=None if plain else time_ms(
+                    f"{name} in place p={p}", in_place),
+                staged_ms=None if plain else time_ms(f"{name} staged p={p}",
+                                                     staged),
                 plain_ms=time_ms(f"{name} plain p={p}", lambda: po.onehot_fetch_plain(
                     t, idx, table, n_out, mode), rounds=3),
                 library_ms=time_ms(f"{name} library p={p}", lib),
                 bound=bound_ms(p * (4 * (1 if plain else 2) + 4 * n_out)
                                + (0 if plain else table.numel() * 4)))
-        r = sizes[P_MAIN]
-        log(f"  {name}: exact at {P_MAIN} and 8192 lanes; {r['ms']:.5f} "
-            f"ms/launch, plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.5f}, bound {r['bound'][0]:.5f} ms; at 8192: "
-            f"{sizes[8192]['ms']:.5f}, library {sizes[8192]['library_ms']:.5f},"
-            f" bound {sizes[8192]['bound'][0]:.5f}; launches {launches}")
+        r, r8 = sizes[P_MAIN], sizes[8192]
+        staged_text = "" if plain else (
+            f", in place {r['in_place_ms']:.5f} ({r8['in_place_ms']:.5f}), "
+            f"staged {r['staged_ms']:.5f} ({r8['staged_ms']:.5f})")
+        log(f"  {name}: exact and equal to its yardstick at {P_MAIN} and "
+            f"8192 lanes; {r['ms']:.5f} ms/launch (at 8192: {r8['ms']:.5f}), "
+            f"yardstick {r['yardstick_ms']:.5f} ({r8['yardstick_ms']:.5f})"
+            f"{staged_text}, plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.5f} ({r8['library_ms']:.5f}), bound "
+            f"{r['bound'][0]:.5f} ({r8['bound'][0]:.5f}) ms; launches "
+            f"{launches}")
         results[name] = dict(
             name=name, route="cuda",
             source="raytracer_project_tpu_torch/csrc/probe_onehot.cu",
@@ -1830,20 +1876,31 @@ def _probe_onehot(results: dict) -> None:
                       else "tools/probe_onehot2.py:52"),
             launches=launches, max_abs_err=0.0, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"])
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            yardstick_ms=r["yardstick_ms"], in_place_ms=r["in_place_ms"],
+            staged_ms=r["staged_ms"],
+            ms_8192=r8["ms"], yardstick_ms_8192=r8["yardstick_ms"],
+            bound_ms_8192=r8["bound"][0])
 
 
 def _probe_decode(results: dict) -> None:
     """P3's stages d0-d2 and d3 (= K2) on K1's hits of the showcase camera
     rays at the pool's width: each through its entry (`run`) with the counts
-    read around it, against its plain version, timed there and at the
-    probe's 8,192 lanes, with its byte bound."""
+    read around it, against its plain version, d0-d2 against their
+    yardstick (the first port's kernel) bit for bit, also on the lanes
+    shuffled from a seed, timed there and at the probe's 8,192 lanes beside
+    the yardstick, with the byte bound."""
     import torch
 
     from raytracer_project_tpu_torch.ops import fused_step as fs
     from raytracer_project_tpu_torch.tools import probe_decode as pd
 
     inputs = {p: pd.camera_hits(p) for p in (P_MAIN, 8192)}
+    tables, od, hit, _ = inputs[P_MAIN]
+    perm = torch.randperm(P_MAIN, generator=torch.Generator().manual_seed(4))
+    perm = perm.to(od.device)
+    shuffled = (od[:, perm].contiguous(),
+                *(x[perm].contiguous() for x in hit))
     k2_int = (fs._RO_HIT, fs._RO_FRONT, fs._RO_MTYPE, fs._RO_GU, fs._RO_GV,
               fs._RO_HASB, fs._RO_TEXROW, fs._RO_BUMPROW, fs._RO_ENVROW)
     for v in ("d0", "d1", "d2", "d3"):
@@ -1855,6 +1912,7 @@ def _probe_decode(results: dict) -> None:
         if v == "d3":
             # K2 runs on no render path now: its launches are the probe's.
             results["decode"]["launches"] = launches
+        yard = {}
         if v in pd.STAGES:
             stage = pd.STAGES[v]
             plain = lambda tables, od, hit, ap: pd.decode_stage_plain(
@@ -1862,6 +1920,10 @@ def _probe_decode(results: dict) -> None:
             exact = (tuple(range(24)) if stage == 0 else
                      tuple(k for k in range(24) if k not in range(2, 11)
                            and k not in (12, 13)))
+            bad = _bits_differ(pd.decode_stage(stage, tables, *shuffled),
+                               pd.decode_stage_scalar(stage, tables, *shuffled))
+            check(bad == 0, f"P3 {v}: {bad} values differ from the yardstick "
+                  "on shuffled lanes")
         else:
             plain = lambda tables, od, hit, ap: fs.decode_plain(
                 tables, od, *hit, ap)
@@ -1873,13 +1935,24 @@ def _probe_decode(results: dict) -> None:
             torch.cuda.synchronize()
             err = max(err, rows_agree(f"P3 {v} p={p}", out, ref, exact))
             ms[p] = time_ms(f"P3 {v} p={p}", fn)
+            if v in pd.STAGES:
+                scalar = lambda: pd.decode_stage_scalar(stage, args[0],
+                                                        args[1], *args[2])
+                bad = _bits_differ(out, scalar())
+                check(bad == 0, f"P3 {v} p={p}: {bad} values differ from "
+                      "the yardstick")
+                yard[p] = time_ms(f"P3 {v} yardstick p={p}", scalar)
         plain_ms = time_ms(f"P3 {v} plain", lambda: plain(*inputs[P_MAIN]),
                            rounds=3)
         per_lane = (12 if v == "d0" else 36) + 4 * fs._RO_ROWS
         bound, by = bound_ms(P_MAIN * per_lane)
+        yard_text = (f", yardstick {yard[P_MAIN]:.5f} ({yard[8192]:.5f} at "
+                     "8192), equal bit for bit also on shuffled lanes"
+                     if yard else "")
         log(f"  P3.{v}: {ms[P_MAIN]:.5f} ms/launch ({ms[8192]:.5f} at 8192 "
-            f"lanes), plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}, "
-            f"{per_lane} B/lane), max |d| {err:.3g}, launches {launches}")
+            f"lanes){yard_text}, plain {plain_ms:.4f} ms, bound {bound:.5f} "
+            f"ms ({by}, {per_lane} B/lane), max |d| {err:.3g}, launches "
+            f"{launches}")
         results[f"P3.{v}"] = dict(
             name=f"P3.{v}", route="cuda",
             source=("raytracer_project_tpu_torch/csrc/probe_decode.cu"
@@ -1887,8 +1960,86 @@ def _probe_decode(results: dict) -> None:
                     "raytracer_project_tpu_torch/csrc/decode.cu"),
             replaces="tools/probe_decode.py:55", launches=launches,
             max_abs_err=err, ms=ms[P_MAIN], plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None)
+            bound_by=by, library_ms=None, ms_8192=ms[8192],
+            bound_ms_8192=bound_ms(8192 * per_lane)[0])
+        if yard:
+            results[f"P3.{v}"].update(yardstick_ms=yard[P_MAIN],
+                                      yardstick_ms_8192=yard[8192])
     log("  P3 d3w4096 and d3u are d3 on the card (Mosaic tiling knobs)")
+
+
+def _fetch_code() -> None:
+    """The SASS, registers and stack frames of P2/P4's and P3's kernels and
+    of their yardsticks; the new ones keep every lane's state out of local
+    memory."""
+    for source in ("probe_onehot", "probe_decode"):
+        for name, (ops, res) in sorted(_kernel_code(source, "_kernel").items()):
+            _log_code(name, ops, res)
+            if name.startswith(("_Z12fetch_kernel", "_Z12stage_kernel")):
+                check(res[2] == 0 and not ops.get("STL") and not ops.get("LDL"),
+                      f"{name} uses local memory")
+
+
+def _fetch_causes(label: str, fetch, stage, staged: bool = False) -> dict:
+    """What sets the time of one build of P2/P4's fetch and P3's stages
+    (`fetch` and `stage` take onehot_fetch's and decode_stage's arguments)
+    at the pool's width: the fetch in col and tdot at 1, 8, 24 and 32
+    outputs, whose ms per added output is set against the 4 B per
+    lane it writes (a serial chain per output costs more); d0-d2 on K1's
+    hits of the showcase camera rays in pool order and with the lanes
+    sorted by primitive type, so that no warp mixes types (the cost of
+    divergence). With `staged`, the fetch in place and staged at 8,192 to
+    131,072 lanes (where staging starts to pay)."""
+    import torch
+
+    from raytracer_project_tpu_torch.tools import probe_decode as pd
+    from raytracer_project_tpu_torch.tools import probe_onehot as po
+
+    dev = torch.device("cuda")
+    per_out = bound_ms(P_MAIN * 4)[0]
+    out = {}
+    for mode in ("col", "tdot"):
+        t, idx, table = po.make_inputs(1536, P_MAIN, po.MODES[mode][1], seed=1,
+                                       device=dev)
+        ms = {n: time_ms(f"{label} {mode} n_out={n}",
+                         lambda n=n: fetch(t, idx, table, n, mode))
+              for n in (1, 8, 24, 32)}
+        slope = (ms[32] - ms[8]) / 24
+        log(f"  {label} {mode}: ms at n_out 1/8/24/32 "
+            + "/".join(f"{v:.5f}" for v in ms.values())
+            + f"; {slope:.6f} ms per added output, {slope / per_out:.2f}x "
+            f"its {per_out:.6f} ms of bytes")
+        out[mode] = dict(ms=ms, per_output_ms=slope)
+    if staged:
+        for mode in ("col", "tdot"):
+            for p in (8192, 32768, 65536, P_MAIN):
+                t, idx, table = po.make_inputs(1536, p, po.MODES[mode][1],
+                                               seed=1, device=dev)
+                ms = [time_ms(f"{label} {mode} p={p} staged={s}",
+                              lambda s=s: fetch(t, idx, table, 24, mode,
+                                                staged=s))
+                      for s in (False, True)]
+                log(f"  {label} {mode} at {p} lanes: {ms[0]:.5f} ms in place, "
+                    f"{ms[1]:.5f} ms staged")
+                out[f"{mode}_{p}"] = dict(in_place_ms=ms[0], staged_ms=ms[1])
+    tables, od, (t, idx, typ), _ = pd.camera_hits(P_MAIN)
+    mixed = float((typ.view(-1, 32).amin(1) != typ.view(-1, 32).amax(1))
+                  .float().mean())
+    order = torch.sort(typ, stable=True).indices
+    by_type = (od[:, order].contiguous(), t[order].contiguous(),
+               idx[order].contiguous(), typ[order].contiguous())
+    counts = torch.bincount(typ.long(), minlength=3).tolist()
+    log(f"  {label} P3 hits: types 0/1/2 {counts}, {mixed:.3f} of warps mix "
+        f"types in pool order")
+    for s in (0, 1, 2):
+        ms = time_ms(f"{label} d{s}", lambda: stage(s, tables, od, t, idx, typ))
+        ms_sorted = time_ms(f"{label} d{s} sorted by type",
+                            lambda: stage(s, tables, *by_type))
+        log(f"  {label} d{s}: {ms:.5f} ms in pool order, {ms_sorted:.5f} ms "
+            f"sorted by type")
+        out[f"d{s}"] = dict(ms=ms, sorted_ms=ms_sorted)
+    out["mixed_warps"] = mixed
+    return out
 
 
 def _k1_split(label: str, od, tmin: float, scene, tables, dense=None) -> dict:
@@ -1972,19 +2123,29 @@ def _launch_floor(results: dict) -> None:
                 ("P3.", "P4.")):
             r.update(launch_floor_ms=floor[P_MAIN],
                      launch_floor_8192_ms=floor[8192])
-            log(f"  {key}: {r['ms']:.5f} ms/launch at {P_MAIN} lanes, "
-                f"{r['bound_ms'] / r['ms']:.3f} of it the bound; less the "
-                f"floor {r['ms'] - floor[P_MAIN]:.5f} ms, "
-                f"{r['bound_ms'] / max(r['ms'] - floor[P_MAIN], 1e-6):.3f}")
+            # K3's yardstick_ms is K2 + K3 + index_add_, not one kernel.
+            for label in ("ms",) + (("yardstick_ms",) if key[0] == "P"
+                                    and "yardstick_ms" in r else ()):
+                ms = r[label]
+                share = r["bound_ms"] / ms
+                less = r["bound_ms"] / max(ms - floor[P_MAIN], 1e-6)
+                r[label.replace("ms", "share")] = share
+                r[label.replace("ms", "share_less_floor")] = less
+                log(f"  {key} {label[:-3] or 'kernel'}: {ms:.5f} ms/launch at "
+                    f"{P_MAIN} lanes, {share:.3f} of it the bound; less the "
+                    f"floor {ms - floor[P_MAIN]:.5f} ms, {less:.3f}")
 
 
 def phase_probes(results: dict, main_rays) -> None:
     """The four TPU probes' twins: P1 (K1 ablations, also splitting K1 on
     the main path's bounce rays `main_rays`), P2/P4 (one-hot row fetch
-    layouts), P3 (decode bisection); and the launch floor under them."""
+    layouts) and P3 (decode bisection), each beside its yardstick, with
+    what sets their times; and the launch floor under them."""
     from raytracer_project_tpu_torch.core.constants import T_MIN
     from raytracer_project_tpu_torch.ops import closest_hit as k1
     from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
+    from raytracer_project_tpu_torch.tools import probe_decode as pd
+    from raytracer_project_tpu_torch.tools import probe_onehot as po
 
     log("probes:")
     _probe_p1(results)
@@ -1994,6 +2155,12 @@ def phase_probes(results: dict, main_rays) -> None:
         pa.scene_tables(scene))}
     _probe_onehot(results)
     _probe_decode(results)
+    _fetch_code()
+    results["P2"]["causes"] = {
+        "yardstick": _fetch_causes("yardstick", po.onehot_fetch_scalar,
+                                   pd.decode_stage_scalar),
+        "kernel": _fetch_causes("kernel", po.onehot_fetch, pd.decode_stage,
+                                staged=True)}
     _launch_floor(results)
 
 

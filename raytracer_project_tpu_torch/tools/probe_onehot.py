@@ -21,6 +21,10 @@ D_BLOCK and WINDOW are accepted and change nothing.
 The reference probe compiled its kernel on ones and zeros; this one runs
 the fetch on a random table and random indices in [-2, n_rows + 2) made
 from a seed, and prints the ms per launch.
+
+On the card `onehot_fetch` launches csrc/probe_onehot.cu's fetch_kernel;
+the first port's kernel stays beside it as the yardstick
+`onehot_fetch_scalar`, which only chip_smoke.py and the card tests call.
 """
 
 from __future__ import annotations
@@ -68,14 +72,14 @@ def onehot_fetch_plain(t, idx, table, n_out: int, mode: str):
         rows = (table.T if transposed else table)[row.clamp(0, n_rows - 1)]
         rows = torch.where(inside[:, None], rows, 0.0)
         outs = [rows[:, k % COLS] + t for k in range(n_out)]
-    return torch.stack(outs) if matrix else tuple(outs)
+    if matrix:
+        return torch.stack(outs) if outs else t.new_empty((0, t.shape[0]))
+    return tuple(outs)
 
 
-def onehot_fetch(t, idx, table, n_out: int, mode: str):
-    """The fetch of `onehot_fetch_plain`: CPU tensors take it, CUDA tensors
-    launch csrc/probe_onehot.cu."""
-    if t.device.type == "cpu":
-        return onehot_fetch_plain(t, idx, table, n_out, mode)
+def _launch(entry: str, t, idx, table, n_out: int, mode: str, *flags):
+    """Allocate the outputs of `mode` and launch C entry `entry` (its
+    layout flags, then `flags`, then the tensors); returns the outputs."""
     n_rows = _check(table, n_out, mode)
     kernels.require_cuda(t, idx, table, dtype=torch.float32)
     plain, transposed, matrix = MODES[mode]
@@ -88,14 +92,48 @@ def onehot_fetch(t, idx, table, n_out: int, mode: str):
                     for _ in range(n_out))
         ptrs = (ctypes.c_void_p * max(n_out, 1))(*[o.data_ptr() for o in res])
         out = None
-    kernels.launch("probe_onehot", plain, transposed, matrix, t, idx, table,
+    kernels.launch(entry, plain, transposed, matrix, *flags, t, idx, table,
                    n_rows, n_out,
                    None if ptrs is None else ctypes.addressof(ptrs), out, p)
+    return res
+
+
+def onehot_fetch(t, idx, table, n_out: int, mode: str,
+                 staged: bool | None = None):
+    """The fetch of `onehot_fetch_plain`: CPU tensors take it, CUDA tensors
+    launch csrc/probe_onehot.cu's fetch_kernel, which reads the table in
+    16 B pieces and so takes it 16 B aligned. `staged` True copies the
+    table into each block's shared memory before the gathers (the modes
+    with a table; at most 2,075 rows), False gathers in place (both for
+    the tests and the measurements), None lets the kernel's entry choose by
+    the gathers of the launch."""
+    if staged and mode == "plain":
+        raise ValueError("mode plain fetches no table to stage")
+    if t.device.type == "cpu":
+        return onehot_fetch_plain(t, idx, table, n_out, mode)
+    if table.data_ptr() % 16:
+        raise ValueError("the fetch kernel takes a 16 B aligned table")
+    res = _launch("probe_onehot", t, idx, table, n_out, mode,
+                  -1 if staged is None else int(staged))
     onehot_fetch.launches += 1
     return res
 
 
 onehot_fetch.launches = 0
+
+
+def onehot_fetch_scalar(t, idx, table, n_out: int, mode: str):
+    """The yardstick of `onehot_fetch` on CUDA tensors: the first port's
+    kernel (csrc/probe_onehot.cu onehot_kernel), one scalar load and one
+    store per output in a loop over n_out. On no entry point's path."""
+    if t.device.type != "cuda":
+        raise ValueError("the yardstick fetch runs on CUDA tensors only")
+    res = _launch("probe_onehot_scalar", t, idx, table, n_out, mode)
+    onehot_fetch_scalar.launches += 1
+    return res
+
+
+onehot_fetch_scalar.launches = 0
 
 
 def make_inputs(n_rows: int, p: int, transposed: bool = False, seed: int = 0,

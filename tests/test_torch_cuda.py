@@ -631,6 +631,74 @@ def test_onehot_fetch_kernel_matches_plain(cuda, mode):
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
+def _bits(out):
+    """The f32 result of a fetch (a tensor or a tuple of them) as i32 [n, p]."""
+    if isinstance(out, torch.Tensor):
+        return out.view(torch.int32)
+    return torch.stack(out).view(torch.int32) if out else torch.zeros(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out", [0, 1, 7, 24, 28, 29, 32])
+@pytest.mark.parametrize("mode", tuple(po.MODES))
+def test_onehot_fetch_kernel_matches_yardstick(cuda, mode, n_out):
+    """The fetch kernel as its entry chooses, in place and with its table
+    staged in shared memory, and the first port's kernel (the yardstick)
+    against the plain version, bit for bit, on 65,537 lanes (not a
+    multiple of a block) with rows outside the table, at output counts on
+    both sides of the 28 columns."""
+    t, idx, table = po.make_inputs(1536, 65_537, bool(po.MODES[mode][1]),
+                                   seed=3, device=cuda)
+    ref = _bits(po.onehot_fetch_plain(t, idx, table, n_out, mode))
+    po.onehot_fetch.launches = po.onehot_fetch_scalar.launches = 0
+    outs = [po.onehot_fetch(t, idx, table, n_out, mode),
+            po.onehot_fetch(t, idx, table, n_out, mode, staged=False),
+            po.onehot_fetch_scalar(t, idx, table, n_out, mode)]
+    if mode != "plain":
+        outs.append(po.onehot_fetch(t, idx, table, n_out, mode, staged=True))
+    assert po.onehot_fetch_scalar.launches == 1
+    assert po.onehot_fetch.launches == len(outs) - 1
+    for out in outs:
+        assert torch.equal(_bits(out), ref)
+
+
+@pytest.mark.cuda
+def test_onehot_fetch_refuses_what_it_cannot_take(cuda):
+    """A table off 16 B alignment, and a staged table larger than a
+    block's shared memory (the CPU tests hold the other refusals)."""
+    t, idx, table = po.make_inputs(1536, 1024, device=cuda)
+    buf = torch.empty(1536 * 28 + 1, device=cuda)
+    off = buf[1:].view(1536, 28)
+    off.copy_(table)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        po.onehot_fetch(t, idx, off, 24, "col")
+    big = po.make_inputs(4096, 1024, True, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        po.onehot_fetch(*big, 24, "tdot", staged=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_decode_stage_kernel_matches_yardstick(cuda, stage, shuffle):
+    """P3's stage kernel against the first port's kernel (the yardstick),
+    bit for bit on every row and lane, on K1's hits of the showcase camera
+    rays in pool order and shuffled from a seed, so that warps mix the
+    primitive types."""
+    tables, od, hit, _ = pd.camera_hits(65_536, cuda)
+    if shuffle:
+        perm = torch.randperm(65_536, generator=torch.Generator().manual_seed(7))
+        perm = perm.to(cuda)
+        od = od[:, perm].contiguous()
+        hit = tuple(x[perm].contiguous() for x in hit)
+    pd.decode_stage.launches = pd.decode_stage_scalar.launches = 0
+    out = pd.decode_stage(stage, tables, od, *hit)
+    ref = pd.decode_stage_scalar(stage, tables, od, *hit)
+    assert pd.decode_stage.launches == pd.decode_stage_scalar.launches == 1
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stage", [0, 1, 2])
 def test_decode_stage_kernel_matches_plain(cuda, stage):

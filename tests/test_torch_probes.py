@@ -241,16 +241,22 @@ def test_ablation_wrappers_on_the_cpu(p1, capsys):
 # --- P2 and P4: the one-hot row fetch ---------------------------------------
 
 P_ONEHOT, D_ONEHOT, N_ROWS, N_OUT = 4096, 2048, 1536, 24
-ONEHOT_CASES = [("P2", "col", 300), ("P2", "col", 2048)] + [
-    ("P4", mode, 512) for mode in po.MODES]
+# (probe, mode, window, n_out); the cases at N_OUT keep their first ids.
+# The others hold the fetch where the kernel's unrolled output loop and
+# its k % 28 wrap matter: one output, past the 28 columns, MAX_OUT.
+ONEHOT_CASES = [pytest.param(*c, N_OUT, id="-".join(map(str, c))) for c in (
+    [("P2", "col", 300), ("P2", "col", 2048)]
+    + [("P4", mode, 512) for mode in po.MODES])] + [
+    pytest.param(probe, mode, 512, n, id=f"{probe}-{mode}-512-n{n}")
+    for probe, mode in (("P2", "col"), ("P4", "tdot")) for n in (1, 29, 32)]
 
 
-def _reference_onehot(probe, mode, window, t, idx, table):
+def _reference_onehot(probe, mode, window, n_out, t, idx, table):
     """The reference probe's kernel (tools/probe_onehot.py:22 for P2,
     tools/probe_onehot2.py:52/:71 for P4) with its main()'s specs."""
     lane = pl.BlockSpec((D_ONEHOT,), lambda i: (i,), memory_space=pltpu.VMEM)
-    flat = lambda: (tuple([lane] * N_OUT), tuple(
-        jax.ShapeDtypeStruct((P_ONEHOT,), jnp.float32) for _ in range(N_OUT)))
+    flat = lambda: (tuple([lane] * n_out), tuple(
+        jax.ShapeDtypeStruct((P_ONEHOT,), jnp.float32) for _ in range(n_out)))
     if probe == "P2":
         path = TOOLS / "probe_onehot.py"
         ns = _exec(path, _defs(path, "kernel", scope="main"), n_rows=N_ROWS,
@@ -261,14 +267,14 @@ def _reference_onehot(probe, mode, window, t, idx, table):
         branch = ("body" if mode in ("plain", "col", "tdotflat") else "orelse")
         ns = _exec(path, _defs(path, "onehot_grow", "onehot_grow_t",
                                f"kernel@{branch}", scope="main"),
-                   mode=mode, n_out=N_OUT, n_rows=N_ROWS, window=window,
+                   mode=mode, n_out=n_out, n_rows=N_ROWS, window=window,
                    cols=28)
         if branch == "body":
             out_specs, out_shape = flat()
         else:
-            out_specs = pl.BlockSpec((N_OUT, D_ONEHOT), lambda i: (0, i),
+            out_specs = pl.BlockSpec((n_out, D_ONEHOT), lambda i: (0, i),
                                      memory_space=pltpu.VMEM)
-            out_shape = jax.ShapeDtypeStruct((N_OUT, P_ONEHOT), jnp.float32)
+            out_shape = jax.ShapeDtypeStruct((n_out, P_ONEHOT), jnp.float32)
     full = pl.BlockSpec(table.shape, lambda i: (0, 0), memory_space=pltpu.VMEM)
     out = pl.pallas_call(
         ns["kernel"], grid=(P_ONEHOT // D_ONEHOT,),
@@ -279,8 +285,8 @@ def _reference_onehot(probe, mode, window, t, idx, table):
         out, (tuple, list)) else np.asarray(out)
 
 
-@pytest.mark.parametrize("probe,mode,window", ONEHOT_CASES)
-def test_onehot_fetch_matches_reference_probe(probe, mode, window):
+@pytest.mark.parametrize("probe,mode,window,n_out", ONEHOT_CASES)
+def test_onehot_fetch_matches_reference_probe(probe, mode, window, n_out):
     """A random table and random indices in [-2, n_rows + 2), some outside
     the table: every output equal, bit for bit."""
     r = np.random.default_rng(5)
@@ -290,13 +296,25 @@ def test_onehot_fetch_matches_reference_probe(probe, mode, window):
     if po.MODES[mode][1]:
         table = np.ascontiguousarray(table.T)
     assert ((idx < 0) | (idx >= N_ROWS)).sum() > 4
-    ref = _reference_onehot(probe, mode, window, t, idx, table)
+    ref = _reference_onehot(probe, mode, window, n_out, t, idx, table)
     out = po.onehot_fetch(torch.as_tensor(t), torch.as_tensor(idx),
-                          torch.as_tensor(table), N_OUT, mode)
+                          torch.as_tensor(table), n_out, mode)
     out = out.numpy() if po.MODES[mode][2] else np.stack(
         [x.numpy() for x in out])
-    assert out.shape == ref.shape == (N_OUT, P_ONEHOT)
+    assert out.shape == ref.shape == (n_out, P_ONEHOT)
     np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("mode", tuple(po.MODES))
+def test_onehot_fetch_with_no_outputs(mode):
+    """n_out 0: an empty [0, p] matrix in the matrix modes, else no
+    outputs; a staged fetch of mode plain, which has no table, refused."""
+    t, idx, table = po.make_inputs(N_ROWS, 64, po.MODES[mode][1], device="cpu")
+    out = po.onehot_fetch(t, idx, table, 0, mode)
+    assert (out.shape == (0, 64)) if po.MODES[mode][2] else out == ()
+    if mode == "plain":
+        with pytest.raises(ValueError, match="stage"):
+            po.onehot_fetch(t, idx, table, 24, mode, staged=True)
 
 
 # --- P3: the decode bisection ----------------------------------------------
@@ -407,6 +425,18 @@ def test_decode_stage_matches_reference(p3, stage):
                                        err_msg=f"row {k}")
         else:
             np.testing.assert_array_equal(out[k], ref[k], err_msg=f"row {k}")
+
+
+def test_yardsticks_take_cuda_tensors_only(p3):
+    """The first port's kernels, kept as yardsticks, have no CPU path."""
+    _, _, tt, od, hit = p3
+    t, idx, table = po.make_inputs(N_ROWS, 64, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        po.onehot_fetch_scalar(t, idx, table, N_OUT, "col")
+    with pytest.raises(ValueError, match="CUDA"):
+        pd.decode_stage_scalar(1, tt, od, *hit)
+    with pytest.raises(ValueError, match="stage 3"):
+        pd.decode_stage_scalar(3, tt, od, *hit)
 
 
 def test_every_c_entry_matches_its_signature():
