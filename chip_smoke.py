@@ -20,11 +20,16 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                unfused K3 and the index_add_ they fed) with its recounted
                byte bound; the index_add_ it retired timed with its idle
                lanes on the dummy slot, dropped, and spread;
-  3. smoke     render the 64x36 @ 2 spp showcase (seed 0) through
-               integrator.render and compare it with the reference's CPU
-               golden under the cross-backend budgets; then the spread
-               between three renders with the pool above and at or below
-               the pixel count;
+  3. smoke     render the 64x36 @ 2 spp showcase (seed 0) through the
+               smoke module's render_fused_fast and hold it to the smoke
+               gate's two goldens (the device golden at mean |d| <= 1e-5,
+               then the reference's CPU golden under the cross-backend
+               budgets); the spread between three renders with the pool
+               above and at or below the pixel count, and between three
+               renders of the smoke frame; then `python -m
+               raytracer_project_tpu_torch.utils.smoke` in a subprocess
+               (exit 0, a device-golden diff for each of its five images,
+               each stage's seconds) and with SMOKE_FAST=1;
   4. full      the fused main path: 800x450 @ 32 spp after one warm-up,
                with the launch counts read around it (K1 and K3 fused;
                K2 and the unfused K3 never), then 1920x1080 @ 8 spp (two
@@ -43,8 +48,10 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                byte bound, K3 fused beside its yardstick; the 18-channel
                index_add_ measured as in phase 2;
   8. features smoke  the fog showcase at 64x36 @ 4 spp with every AOV and
-               both passes through integrator.render against the
-               reference's three `smoke_features_*` CPU goldens;
+               both passes (the smoke module's render_fused_features)
+               against its three device goldens and the reference's three
+               `smoke_features_*` CPU goldens, and its spread over three
+               renders;
   9. features full   the fused path with every feature at full size:
                800x450 @ 32 spp, depth 10, showcase_scene(use_fog=True),
                all six buffers, with the launch counts read around it, a
@@ -86,8 +93,9 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                showcase and the funnel, each printing its JSON line;
  16. bench_bvh the traversal against K4 on 262,144 rays per case;
  17. pool smoke  the unfused pool (RAYTRACER_TPU_NO_FUSED=1): the 128x72 @
-               4 spp showcase against the reference's smoke_pool_128x72.npz,
-               and the fog showcase with textured fog at 64x36 @ 4 spp (the
+               4 spp showcase (the smoke module's render_pool) against its
+               device golden and the reference's smoke_pool_128x72.npz,
+               its spread over three renders, and the fog showcase with textured fog at 64x36 @ 4 spp (the
                route integrator.render takes for it) against the CPU;
  18. pool full the unfused pool at 800x450 @ 32 spp, beauty, depth 10, on
                the showcase and the funnel, sort_lanes off and on: wall,
@@ -116,9 +124,14 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                a sun turned by ~10 degrees;
  24. denoise   Q1 the reference's denoise-quality gate (Shirley and Cornell
                at 96x54, 8 against 384 spp, the fused pool's AOVs) at its
-               thresholds; Q2 both denoisers card against CPU; Q3 both
-               timed on the 1920x1080 @ 8 spp showcase buffers, with peak
-               memory and the U-Net's operation bound;
+               thresholds; Q2 both denoisers card against CPU; T1 a
+               training run (tools/train_denoiser.py, 6 pairs, 200 steps):
+               the loss falls, the weights written load back through
+               load_params with the same output; Q3 both timed on the
+               1920x1080 @ 8 spp showcase buffers, with peak memory and
+               the U-Net's operation bound;
+     tools     prof_fused_step at bench shapes, and the parity gallery's 16
+               PNGs written under build/chip_smoke/parity and read back;
  25. frontend  the progressive session, the CLI and the interactive loop
                (outputs under build/frontend/): F1 `render` through
                cli.main, 800x450 @ 32 spp in chunks of 4 with four passes,
@@ -189,6 +202,8 @@ FIT_STEPS = 20
 # tests/test_denoise_quality.py), Q3's frame and spp.
 Q1_SIZE, Q1_SPP = (96, 54), (8, 384)
 Q3_SIZE = (1920, 1080, 8)
+# Phase denoise, T1: the short training run's pairs and steps.
+T1_PAIRS, T1_STEPS = 6, 200
 # f32 operations of one K1 epilogue with its compare against the running
 # best, counted from csrc/closest_hit.cu (sphere_epi, tri_epi, box_epi).
 EPILOGUE_OPS = (15, 12, 35)
@@ -1099,31 +1114,53 @@ def _cfg(width, height, spp):
         use_albedo=False, use_normal=False, use_z_depth=False)
 
 
+def _smoke_gate_check(images) -> None:
+    """Each smoke image [(golden_name, label, max_frac, img)] under the
+    smoke gate's two-golden policy on this card (utils/smoke.py
+    _check_image): the committed device golden at mean |d| <= 1e-5, then
+    the CPU golden under the cross-backend budgets."""
+    from raytracer_project_tpu_torch.utils import smoke
+
+    info = smoke.device_info("cuda")
+    for name, label, max_frac, img in images:
+        err = smoke._check_image(img, name, label, max_frac=max_frac,
+                                 device=info)
+        check(err is None, f"{label}: {err}")
+
+
+def _smoke_spread(render, first, results: dict) -> None:
+    """Two more renders of a smoke stage (`render`, one of the smoke
+    module's render_* functions) beside its first images `first`: the
+    largest mean and max |d| between the three runs of each image, which
+    must stay within make_device_goldens' interlock (mean <= 1e-6)."""
+    from raytracer_project_tpu_torch.tools import make_device_goldens as mdg
+
+    runs = [first] + [render("cuda") for _ in range(2)]
+    spread = results["shade_advance"]["run_to_run"]
+    for k, (name, _, _, _) in enumerate(first):
+        mean, mx = mdg.spread([r[k][3] for r in runs])
+        spread[name] = {"runs": 3, "mean_abs_diff": mean, "max_abs_diff": mx}
+        log(f"  {name}: three runs, largest mean |d| between runs {mean:.3g}, "
+            f"max |d| {mx:.3g}")
+        check(mean <= mdg.SPREAD_MEAN, f"{name}: runs differ by {mean:.3g}")
+
+
 def phase_smoke(results: dict) -> None:
     import dataclasses
 
-    import numpy as np
     import torch
 
     from raytracer_project_tpu_torch.ops import integrator
+    from raytracer_project_tpu_torch.utils import smoke
 
-    scene, cam, env = _showcase(64, 36)
     _reset_counters()
     with _PlainCallCounter() as plain:
-        out = integrator.render(scene, cam, env, 0, _cfg(64, 36, 2))
-        img = out["beauty"].cpu().numpy()
+        images = smoke.render_fused_fast("cuda")
     launches = _launches(FUSED_KERNELS)
     log(f"smoke: 64x36@2spp launches {launches}, plain calls {plain.calls}")
     check(all(v > 0 for v in launches.values()), "a kernel was not launched")
     check(plain.calls == 0, "a plain version ran during the CUDA render")
-    check(bool(np.isfinite(img).all()) and img.max() > 0, "smoke image bad")
-    golden = np.load(os.path.join(REPO, "tests", "goldens",
-                                  "smoke_fused_64x36.npz"))["beauty"]
-    d = np.abs(img - golden)
-    mean, frac = float(d.mean()), float((d.max(axis=-1) > 0.05).mean())
-    log(f"smoke: CPU-golden diff mean|d| {mean:.5f} frac(>0.05) {frac:.4f} "
-        f"(budgets 0.06 / 0.20)")
-    check(mean <= 0.06 and frac <= 0.20, "smoke image disagrees with golden")
+    _smoke_gate_check(images)
 
     # The spread between runs, which K3 fused's adds in no fixed order
     # may open: the smoke frame three times with the pool above its pixel
@@ -1135,14 +1172,51 @@ def phase_smoke(results: dict) -> None:
         cfg = dataclasses.replace(_cfg(w, h, 2), pool_lanes=pool)
         imgs = [integrator.render(*inputs, 0, cfg)["beauty"] for _ in range(3)]
         d = max(float((a - imgs[0]).abs().max()) for a in imgs[1:])
+        dm = max(float((a - imgs[0]).abs().mean()) for a in imgs[1:])
         same = all(torch.equal(a, imgs[0]) for a in imgs[1:])
         spread[f"{w}x{h}"] = {"pool_lanes": pool or 4096,
                               "pixels": w * h, "max_abs_diff": d,
-                              "bit_identical": same}
+                              "mean_abs_diff": dm, "bit_identical": same}
         log(f"smoke: {w}x{h}@2spp pool {pool or 4096} lanes, three runs: "
-            f"bit-identical {same}, max |d| between runs {d:.3g}")
+            f"bit-identical {same}, max |d| between runs {d:.3g}, mean {dm:.3g}")
         check(d <= 3e-4, f"smoke {w}x{h}: runs differ by {d:.3g}")
     results["shade_advance"]["run_to_run"] = spread
+    _smoke_spread(smoke.render_fused_fast, images, results)
+
+
+def phase_smoke_module(results: dict) -> None:
+    """`python -m raytracer_project_tpu_torch.utils.smoke` in a subprocess
+    under a timeout, as the bench runs it: exit 0 after all five stages,
+    a device-golden diff line for each of the five device goldens, and
+    the seconds of each stage; then SMOKE_FAST=1 runs fused-fast alone."""
+    import re
+
+    cmd = [sys.executable, "-m", "raytracer_project_tpu_torch.utils.smoke"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  | {line}")
+    check(proc.returncode == 0,
+          f"smoke module exit {proc.returncode}: {proc.stderr[-2000:]}")
+    diffs = [ln for ln in proc.stdout.splitlines() if "device-golden diff" in ln]
+    check(len(diffs) == 5, f"smoke module: {len(diffs)} device-golden diffs")
+    marks = {}
+    for ln in proc.stdout.splitlines():
+        m = re.match(r"SMOKE \[\s*([\d.]+)s\] stage (\S+): (start|PASS)", ln)
+        if m:
+            marks.setdefault(m.group(2), {})[m.group(3)] = float(m.group(1))
+    stages = {k: v["PASS"] - v["start"] for k, v in marks.items()}
+    log(f"smoke module: rc 0 in {wall:.1f} s (process wall); stage seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    check(len(stages) == 5, f"smoke module: stages {list(stages)}")
+    fast = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, SMOKE_FAST="1"))
+    check(fast.returncode == 0 and "stages=['fused-fast']" in fast.stdout,
+          f"SMOKE_FAST=1: exit {fast.returncode}: {fast.stdout[-500:]}")
+    log("smoke module: SMOKE_FAST=1 ran fused-fast alone, exit 0")
+    results["shade_advance"]["smoke_stage_s"] = stages
 
 
 def _render_timed(width, height, spp, seed):
@@ -1511,28 +1585,22 @@ def _features_cfg(width, height, spp, **kw):
         use_reflection=True, use_refraction=True, **kw)
 
 
-def phase_features_smoke() -> None:
+def phase_features_smoke(results: dict) -> None:
     """The reference's fused-features stage on the card (utils/smoke.py:
-    241-292) against its CPU goldens, under the cross-backend budgets."""
-    import numpy as np
+    241-292) through the smoke module's render, against its device and
+    CPU goldens, and its run-to-run spread."""
+    from raytracer_project_tpu_torch.utils import smoke
 
-    from raytracer_project_tpu_torch.ops import integrator
-
-    inputs = _showcase(64, 36, use_fog=True, fog_density=0.02)
     _reset_counters()
     with _PlainCallCounter() as plain:
-        out = integrator.render(*inputs, 0, _features_cfg(64, 36, 4))
-        imgs = {k: v.cpu().numpy() for k, v in out.items()}
+        images = smoke.render_fused_features("cuda")
     launches = _launches(FEATURES_KERNELS)
     log(f"features smoke: 64x36@4spp fog, AOVs, passes: launches {launches}, "
         f"plain calls {plain.calls}")
     check(all(v > 0 for v in launches.values()), "a kernel was not launched")
     check(plain.calls == 0, "a plain version ran during the CUDA render")
-    for name in ("beauty", "albedo", "reflection"):
-        golden = np.load(os.path.join(
-            REPO, "tests", "goldens", f"smoke_features_{name}_64x36.npz"))["beauty"]
-        check(imgs[name].max() > 0, f"features smoke {name} black")
-        _image_agree(f"features {name} vs CPU golden", imgs[name], golden)
+    _smoke_gate_check(images)
+    _smoke_spread(smoke.render_fused_features, images, results)
 
 
 def phase_features_full(results: dict) -> None:
@@ -2528,40 +2596,33 @@ def _textured_fog_showcase(width, height, device):
             tenv.make_environment(**ENV_KW))
 
 
-def phase_pool_smoke() -> None:
+def phase_pool_smoke(results: dict) -> None:
     """The reference's pool-render stage (utils/smoke.py:307-336): the
-    128x72 @ 4 spp showcase through the unfused pool on the card against
-    smoke_pool_128x72.npz; then the fog showcase with textured fog at 64x36
-    @ 4 spp on the pool (the route render takes for it) against the port's
-    own CPU render; both under the cross-backend budgets, with the counts
-    read around each render."""
+    128x72 @ 4 spp showcase through the unfused pool on the card (the
+    smoke module's render) against its device and CPU goldens, with its
+    run-to-run spread; then the fog showcase with textured fog at 64x36 @
+    4 spp on the pool (the route render takes for it) against the port's
+    own CPU render under the cross-backend budgets; the counts read around
+    each render."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from raytracer_project_tpu_torch.ops import integrator
+    from raytracer_project_tpu_torch.utils import smoke
 
-    scene, cam, env = _showcase(128, 72)
     _reset_counters()
-    with _NoFused(), _PlainCallCounter() as plain:
-        out, st = integrator.render(scene, cam, env, 0, _cfg(128, 72, 4),
-                                    with_stats=True)
-        img = out["beauty"].cpu().numpy()
+    with _PlainCallCounter() as plain:
+        images = smoke.render_pool("cuda")
     launches = _launches(UNFUSED_CHECK)
-    log(f"pool smoke: 128x72@4spp engine {st['engine']}, launches {launches}, "
-        f"plain calls {plain.calls}, segments {st['segments']}, steps "
-        f"{st['steps']}")
-    check(st["engine"] == "pool", "pool smoke: not the unfused pool")
+    log(f"pool smoke: 128x72@4spp unfused pool, launches {launches}, plain "
+        f"calls {plain.calls}")
     check(launches["closest_hit"] > 0, "pool smoke: K1 was not launched")
     check(launches["shade_advance"] == launches["shade_advance_features"] == 0,
           "pool smoke: the fused step ran")
     check(plain.calls == 0, "a plain version ran during the CUDA render")
-    check(img.max() > 0, "pool smoke image black")
-    golden = np.load(os.path.join(REPO, "tests", "goldens",
-                                  "smoke_pool_128x72.npz"))["beauty"]
-    _image_agree("pool 128x72@4spp vs CPU golden smoke_pool_128x72.npz", img,
-                 golden)
+    _smoke_gate_check(images)
+    _smoke_spread(smoke.render_pool, images, results)
 
     cfg = dataclasses.replace(_cfg(64, 36, 4), use_albedo=True)
     scene, cam, env = _textured_fog_showcase(64, 36, torch.device("cuda"))
@@ -3449,6 +3510,7 @@ def phase_denoise() -> None:
         if name == "cornell":
             check(p["unet"] > p["raw"] + 6.0 and s["unet"] > 0.98,
                   "Q1 cornell: the U-Net gains less than 6 dB or SSIM <= 0.98")
+            buf_t1 = (noisy, albedo, normal)
         # Q2: both denoisers card against CPU on these buffers.
         cpu_in = [x.cpu() for x in (noisy, albedo, normal)]
         cpu_model = denoiser_unet.load_default(device="cpu")
@@ -3461,6 +3523,38 @@ def phase_denoise() -> None:
                 log(f"  Q2 {name} {label} card vs CPU: max|d| {err:.3g} "
                     f"(budget 1e-4 x max {scale:.3g})")
                 check(err <= 1e-4 * scale, f"Q2 {name} {label}: card vs CPU")
+
+    # T1: a short training run on the card (6 pairs, 200 steps): the loss
+    # falls, and the weights written load back through load_params into a
+    # U-Net whose output equals the trained one's and is finite.
+    from raytracer_project_tpu_torch.tools import train_denoiser
+
+    base = os.path.join(REPO, "build", "chip_smoke")
+    res = train_denoiser.main(
+        steps=T1_STEPS, pairs=T1_PAIRS,
+        out=os.path.join(base, "denoiser", "denoiser_weights.npz"),
+        cache=os.path.join(base, "denoiser_data"), device=dev)
+    losses = res["losses"]
+    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    log(f"denoise T1: {T1_PAIRS} pairs rendered in {res['data_s']:.2f} s, "
+        f"{T1_STEPS} steps in {res['train_s']:.2f} s; loss over the first / "
+        f"last 20 steps {first:.5f} / {last:.5f}, last {losses[-1]:.5f}; "
+        f"validation PSNR " + "; ".join(
+            ", ".join(f"{k} {v:.2f}" for k, v in row.items())
+            for row in res["val"]))
+    check(all(v == v for v in losses) and last < first,
+          "T1: the training loss did not fall")
+    loaded = denoiser_unet.DenoiserUNet(
+        denoiser_unet.load_params(res["out"])).to(dev)
+    with torch.no_grad():
+        a, b = res["model"](*buf_t1), loaded(*buf_t1)
+    err = float((a - b).abs().max())
+    check(bool(torch.isfinite(b).all()), "T1: the loaded U-Net is not finite")
+    check(err <= 1e-6 * float(a.abs().max()),
+          f"T1: the loaded weights give another output (max |d| {err:.3g})")
+    log(f"denoise T1: weights {res['out']} load back; output against the "
+        f"trained U-Net's: bit-equal {bool(torch.equal(a, b))}, max |d| "
+        f"{err:.3g}")
 
     # Q3: both denoisers on the 1080p showcase buffers.
     qw, qh, qspp = Q3_SIZE
@@ -3489,6 +3583,34 @@ def phase_denoise() -> None:
                      if label == "unet" else "")
             log(f"denoise Q3 {label} {qw}x{qh}@{qspp}spp buffers: {ms:.3f} ms, "
                 f"peak memory {peak / 2**30:.3f} GiB above the inputs{extra}")
+
+
+def phase_tools() -> None:
+    """The last tool twins once on the card: prof_fused_step at bench
+    shapes (800x450, the 23 spp chunk, depth 10), and the parity gallery's
+    16 PNGs written under build/ and read back."""
+    from raytracer_project_tpu_torch.tools import make_parity_gallery
+    from raytracer_project_tpu_torch.tools import prof_fused_step
+    from raytracer_project_tpu_torch.utils import image_io
+
+    rows = prof_fused_step.main([])
+    log("prof_fused_step (800x450, 23 spp chunk, 10 reps after two warm "
+        "steps): " + ", ".join(f"{k} {v:.4f} ms" for k, v in rows.items()))
+    check(all(v > 0 for v in rows.values()), "prof_fused_step: a row is 0")
+    t0 = time.perf_counter()
+    written = make_parity_gallery.main(
+        ["--out", os.path.join(REPO, "build", "chip_smoke", "parity")])
+    wall = time.perf_counter() - t0
+    check(len(written) == 16, f"gallery: {len(written)} PNGs")
+    lit = 0
+    for path in written:
+        img = image_io.read_png(path)
+        check(img.shape == (112, 200, 3), f"gallery: {path} reads back as "
+              f"{img.shape}")
+        lit += int(img.max() > 0)
+    log(f"gallery: 16 PNGs at 200x112 in {wall:.1f} s, read back, {lit} "
+        f"not black")
+    check(lit >= 15, "gallery: more than one black image")
 
 
 # --- phase 25: the front end (session, CLI, interactive loop) ----------------
@@ -3885,11 +4007,12 @@ def main() -> int:
     ray_sets = phase_kernels(results)
     phase_k4(results)
     phase_smoke(results)
+    phase_smoke_module(results)
     phase_full(results)
     phase_chunked_smoke()
     phase_chunked_full(results)
     phase_k3_features(results)
-    phase_features_smoke()
+    phase_features_smoke(results)
     phase_features_full(results)
     phase_probes(results, ray_sets["bounce"])
     phase_scenes_smoke()
@@ -3898,13 +4021,14 @@ def main() -> int:
     phase_baseline_configs()
     phase_bench()
     phase_bench_bvh()
-    phase_pool_smoke()
+    phase_pool_smoke(results)
     phase_pool_full(results)
     phase_windows(results)
     phase_sort_rays(results)
     phase_post(phase_two_process())
     phase_diff(results)
     phase_denoise()
+    phase_tools()
     phase_frontend(results)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)

@@ -10,10 +10,11 @@ wall seconds of the best of two seeded renders after one warm-up render.
 width*height*spp*max_depth / wall estimator (main.cpp:101-113);
 `vs_baseline` is value / 1e9 (BASELINE.md's north star).
 
-Before anything is timed, a gate runs in a subprocess under a timeout: the
-64x36 @ 2 spp fused render of the showcase against
-tests/goldens/smoke_fused_64x36.npz within the cross-backend budget (mean
-|d| <= 0.06, at most 20% of pixels over 0.05). If it fails, the bench
+Before anything is timed, the smoke gate (`python -m
+raytracer_project_tpu_torch.utils.smoke --device <the bench's device>`;
+SMOKE_FAST=1 runs its first stage only) runs in a subprocess under a
+timeout, as the reference's bench runs its smoke module: a hung kernel
+cannot be interrupted in-process. If it fails or times out, the bench
 prints a JSON line with an `error` key and exits 1; it does not retry on
 another engine.
 
@@ -37,15 +38,9 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 NORTH_STAR_RAYS_PER_S = 1.0e9
-GATE_GOLDEN = (Path(__file__).resolve().parent.parent / "tests" / "goldens"
-               / "smoke_fused_64x36.npz")
-# The cross-backend budgets (the reference's utils/smoke.py:98-99).
-GATE_MEAN = 0.06
-GATE_FRAC = 0.20
 SHOWCASE_CAM = dict(vfov=30.0, lookfrom=(12.0, 2.5, 6.0),
                     lookat=(0.0, 1.0, 0.0), defocus_angle=0.0, focus_dist=10.0)
 FUNNEL_CAM = dict(vfov=35.0, lookfrom=(5.0, 6.0, 6.0), lookat=(5.0, 4.0, -12.0))
@@ -62,51 +57,15 @@ def _device_names(dev: torch.device) -> list[str]:
     return [str(dev)]
 
 
-def gate_error(img: np.ndarray, golden: np.ndarray) -> str | None:
-    """Why the gate's image fails against the golden, or None."""
-    if img.shape != golden.shape:
-        return f"gate image {img.shape}, golden {golden.shape}"
-    if not np.isfinite(img).all() or img.max() <= 0.0:
-        return "gate image not finite or all black"
-    d = np.abs(img - golden)
-    mean, frac = float(d.mean()), float((d.max(axis=-1) > 0.05).mean())
-    if mean > GATE_MEAN or frac > GATE_FRAC:
-        return (f"gate image disagrees with {GATE_GOLDEN.name}: mean|d| "
-                f"{mean:.5f} (budget {GATE_MEAN}), frac(>0.05) {frac:.4f} "
-                f"(budget {GATE_FRAC})")
-    return None
-
-
-def _gate() -> int:
-    """The gate itself (run in the subprocess): exit 0 when it holds."""
-    from .models import camera, environment, presets
-    from .ops import integrator
-
-    cfg = integrator.RenderConfig(width=64, height=36, samples_per_pixel=2,
-                                  max_depth=10, use_albedo=False,
-                                  use_normal=False, use_z_depth=False)
-    out = integrator.render(
-        presets.showcase_scene(),
-        camera.make_camera(image_width=64, image_height=36, **SHOWCASE_CAM),
-        environment.make_environment(**SUN), 0, cfg, device=_device())
-    why = gate_error(out["beauty"].cpu().numpy(),
-                     np.load(GATE_GOLDEN)["beauty"])
-    if why:
-        print(why, file=sys.stderr)
-        return 1
-    print("gate ok", flush=True)
-    return 0
-
-
 def run_gate() -> str | None:
-    """Run the gate in a subprocess under BENCH_SMOKE_TIMEOUT seconds: a
-    hung kernel cannot be interrupted in-process. The reason it failed, or
-    None."""
+    """Run the smoke gate on the bench's device in a subprocess under
+    BENCH_SMOKE_TIMEOUT seconds. The reason it failed, or None."""
     timeout = int(os.environ.get("BENCH_SMOKE_TIMEOUT", 420))
     try:
         proc = subprocess.run(
-            [sys.executable, "-m", "raytracer_project_tpu_torch.bench",
-             "--gate"], cwd=Path(__file__).resolve().parent.parent,
+            [sys.executable, "-m", "raytracer_project_tpu_torch.utils.smoke",
+             "--device", str(_device())],
+            cwd=Path(__file__).resolve().parent.parent,
             capture_output=True, text=True, timeout=timeout)
     except subprocess.TimeoutExpired:
         return f"gate timed out after {timeout} s"
@@ -142,10 +101,7 @@ def _timed(scene, cam, env, seed: int, cfg, dev):
     return time.perf_counter() - t0, stats
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if argv == ["--gate"]:
-        return _gate()
+def main() -> int:
     from .models import camera, environment
     from .ops import intersect, integrator
 

@@ -280,7 +280,7 @@ def _cmd_bench(args) -> int:
     saved = {k: os.environ.get(k) for k in flags}
     os.environ.update({k: str(v) for k, v in flags.items() if v is not None})
     try:
-        return bench.main([])
+        return bench.main()
     finally:
         for k, v in saved.items():
             if v is None:

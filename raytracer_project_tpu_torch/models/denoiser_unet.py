@@ -5,7 +5,9 @@ It takes the reference's OIDN input contract (camera.hpp:640-648) and
 predicts a residual correction of the noisy beauty in log space. The
 weights are the JAX package's (raytracer_project_tpu/assets/
 denoiser_weights.npz, read as a data file; HWIO kernels), carried across
-by `params_from_numpy`.
+by `params_from_numpy`; `save_params` and `load_params` write and read
+that layout, so each package reads the other's weights
+(tools/train_denoiser.py trains new ones).
 
 Architecture: two levels, 3x3 convolutions with leaky ReLU (slope 0.1),
 stride-2 downsampling, nearest upsampling with skip concatenation, ~70k
@@ -81,6 +83,28 @@ def params_from_numpy(d) -> dict:
     return out
 
 
+def load_params(path) -> dict:
+    """The weights of an npz in the reference's layout ({name}.w HWIO,
+    {name}.b; either package's save_params writes it) as
+    `params_from_numpy` gives them."""
+    with np.load(path) as data:
+        return params_from_numpy(data)
+
+
+def save_params(path, params: dict) -> None:
+    """Write OIHW `params` (params_from_numpy's, or DenoiserUNet.params())
+    to an npz in the reference's layout: {name}.w HWIO, {name}.b, f32,
+    which the reference's load_params reads."""
+    out = {}
+    for name, _, _ in _LAYERS:
+        w = params[f"{name}.w"].detach().cpu().numpy()
+        out[f"{name}.w"] = np.ascontiguousarray(w.transpose(2, 3, 1, 0),
+                                                np.float32)
+        out[f"{name}.b"] = params[f"{name}.b"].detach().cpu().numpy().astype(
+            np.float32)
+    np.savez(path, **out)
+
+
 def param_count(params) -> int:
     return int(sum(v.numel() for v in params.values()))
 
@@ -116,11 +140,17 @@ def apply(params: dict, beauty, albedo, normal):
     the inputs are padded (edge) to a multiple of 4 for the two
     downsamplings. The network sees log1p(beauty) and predicts a residual
     there, so the output's brightness is anchored to the input's."""
-    h, w = beauty.shape[0], beauty.shape[1]
+    return apply_batch(params, beauty[None], albedo[None], normal[None])[0]
+
+
+def apply_batch(params: dict, beauty, albedo, normal):
+    """`apply` over a batch: [N, H, W, 3] buffers -> [N, H, W, 3] (the
+    reference's jax.vmap of apply, as its trainer calls it)."""
+    h, w = beauty.shape[1], beauty.shape[2]
     ph, pw = (-h) % 4, (-w) % 4
 
     def pad(img):
-        return F.pad(img.permute(2, 0, 1)[None], (0, pw, 0, ph),
+        return F.pad(img.permute(0, 3, 1, 2), (0, pw, 0, ph),
                      mode="replicate")
 
     lb = torch.log1p(torch.clamp(pad(beauty), min=0.0))
@@ -137,7 +167,7 @@ def apply(params: dict, beauty, albedo, normal):
         d0 = cv("dec0b", cv("dec0a", torch.cat([_upsample2(d1), e0], dim=1)))
         res = _conv(d0, params, "out")
     out = torch.expm1(torch.clamp(lb + res, min=0.0))
-    return out[0, :, :h, :w].permute(1, 2, 0)
+    return out[:, :, :h, :w].permute(0, 2, 3, 1)
 
 
 class DenoiserUNet(nn.Module):
@@ -168,6 +198,4 @@ def load_default(device=None) -> DenoiserUNet | None:
     path = os.environ.get("RAYTRACER_TPU_DENOISER", str(_DEFAULT_WEIGHTS))
     if not os.path.exists(path):
         return None
-    with np.load(path) as data:
-        params = params_from_numpy(data)
-    return DenoiserUNet(params).to(resolve_device(device))
+    return DenoiserUNet(load_params(path)).to(resolve_device(device))

@@ -16,7 +16,10 @@ on the card by default (CUDA kernels), on the CPU with `--device cpu`
 the ms per launch, from CUDA events on the card (host clock on the CPU).
 Where the reference probe only compiled (P2-P4), the twin also runs and
 times the kernel. Beside the probes, `bench_turns` times two checkouts of
-the port in turns on one card.
+the port in turns on one card, and the twins of the repository's other
+tools: `make_goldens`, `make_smoke_goldens` and `make_device_goldens`
+(the goldens' writers), `train_denoiser`, `prof_fused_step`,
+`make_parity_gallery` and `bench_bvh`.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The port's bench entry point (python -m raytracer_project_tpu_torch.bench)
 on the CPU: one JSON line with the keys of the repository's bench.py after
-its gate passes, and exit 1 with an `error` key when the gate fails."""
+its gate (the smoke module's first stage, SMOKE_FAST=1) passes, and exit 1
+with an `error` key when the gate fails."""
 
 import json
 import os
@@ -11,7 +12,7 @@ import sys
 import numpy as np
 import torch
 
-from raytracer_project_tpu_torch import bench
+from raytracer_project_tpu_torch.utils import smoke
 
 torch.set_num_threads(2)
 
@@ -24,7 +25,8 @@ DETAIL_KEYS = {"width", "height", "spp", "max_depth", "wall_s", "primitives",
 
 
 def _run(**env):
-    full = dict(os.environ, BENCH_DEVICE="cpu", OMP_NUM_THREADS="2", **env)
+    full = dict(os.environ, BENCH_DEVICE="cpu", OMP_NUM_THREADS="2",
+                SMOKE_FAST="1", **env)
     return subprocess.run([sys.executable, "-m",
                            "raytracer_project_tpu_torch.bench"], cwd=REPO,
                           env=full, capture_output=True, text=True, timeout=300)
@@ -40,8 +42,9 @@ def test_keys_are_bench_py_keys():
 
 
 def test_bench_prints_one_json_line():
-    """32x18 @ 2 spp (depth 3) on the CPU after the gate (the 64x36 fused
-    render against its golden): one line, bench.py's keys."""
+    """32x18 @ 2 spp (depth 3) on the CPU after the gate (the smoke
+    module's fused-fast stage: the 64x36 fused render against its golden):
+    one line, bench.py's keys."""
     proc = _run(BENCH_WIDTH="32", BENCH_HEIGHT="18", BENCH_SPP="2",
                 BENCH_DEPTH="3", BENCH_SKIP_1080P="1")
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -60,12 +63,13 @@ def test_bench_prints_one_json_line():
 def test_failing_gate_exits_1_with_error():
     """A gate that does not finish in time fails the bench: exit 1, one
     JSON line with an `error` key, nothing timed; and the gate's image
-    check refuses a wrong image."""
+    check (smoke._check_image on the CPU) refuses a wrong image."""
     proc = _run(BENCH_SMOKE_TIMEOUT="0")
     assert proc.returncode == 1
     row = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "gate timed out" in row["error"] and row["value"] == 0.0
-    golden = np.load(bench.GATE_GOLDEN)["beauty"]
-    assert bench.gate_error(golden, golden) is None
-    assert "disagrees" in bench.gate_error(golden * 0.5, golden)
-    assert "not finite" in bench.gate_error(golden * np.nan, golden)
+    golden = np.load(smoke._golden_path("smoke_fused_64x36"))["beauty"]
+    check = lambda img: smoke._check_image(img, "smoke_fused_64x36", "gate")
+    assert check(golden) is None
+    assert "disagrees" in check(golden * 0.5)
+    assert "non-finite" in check(golden * np.nan)

@@ -63,7 +63,7 @@ def test_bench_flags_win_over_the_environment_for_one_run(monkeypatch):
     from raytracer_project_tpu_torch import bench
 
     seen = []
-    monkeypatch.setattr(bench, "main", lambda argv: seen.append(
+    monkeypatch.setattr(bench, "main", lambda: seen.append(
         (os.environ.get("BENCH_SPP"), os.environ.get("BENCH_DEVICE"))) or 0)
     monkeypatch.setenv("BENCH_SPP", "64")
     monkeypatch.delenv("BENCH_DEVICE", raising=False)

@@ -1134,3 +1134,26 @@ def test_display_wire_on_card(cuda):
                                        level=2, thickness=0.05).cpu()
     assert bool((want != beauty.cpu()).any())
     assert float(((got - want).abs().amax(-1) > 1e-5).float().mean()) <= 0.002
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0.0, 1e-4])
+def test_smoke_device_golden_bites(cuda, offset):
+    """The smoke gate's tight check on this card: the committed device
+    golden of the fused-fast frame names this card and CUDA version; an
+    unchanged render passes it, and one with 1e-4 added to one channel of
+    every pixel (mean |d| 3.3e-5, invisible to the cross-backend budgets)
+    fails it."""
+    from raytracer_project_tpu_torch.utils import smoke
+
+    info = smoke.device_info(cuda)
+    with np.load(smoke._golden_path("smoke_fused_64x36_cuda")) as g:
+        assert (str(g["device"]), str(g["cuda"])) == (info.name, info.cuda)
+    (name, label, max_frac, img), = smoke.render_fused_fast(cuda)
+    img = img.copy()
+    img[..., 0] += offset
+    err = smoke._check_image(img, name, label, max_frac, device=info)
+    if offset:
+        assert err is not None and "drifted from device golden" in err
+    else:
+        assert err is None
