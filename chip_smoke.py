@@ -103,13 +103,26 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                events around each launch), a device-only profile;
  19. windows   K3 fused with pixel_offset != 0 against its plain version
                at 131,072 lanes, timed beside its yardstick; 4 windows of cuda:0 (render_sharded /
-               sharded_accumulate) on the fused pool over an 801x451 frame,
-               and explicit pixel ids on the unfused pool and the chunked
-               path, each against the one-window render;
+               sharded_accumulate, a thread each) on the fused pool over an
+               801x451 frame, timed, and explicit pixel ids on the unfused
+               pool and the chunked path, each against the one-window render;
+     multicard the frame over several devices at once, at the main path's
+               size (800x450 @ 32 spp, beauty, depth 10, 4 windows): (a) 4
+               windows of cuda:0, a thread and a stream each, against the
+               same windows rendered one after another and the one-device
+               render (equal segments, rtol/atol 3e-4), walls in turns and
+               the threads' overlap (the windows' walls summed over the
+               whole wall); (b) a one-rank NCCL group through
+               render_distributed, and its statistics reduced on the card;
+               (d) where there are two cards or more, a mesh of every
+               card, a spawned NCCL rank per card and, with four or more,
+               ranks of two cards each (else one line saying that it did
+               not run);
  20. sort rays K4 on the 360,000 bounce lanes with sort_rays off and on:
                equal hits, K4 timed on unsorted and sorted rays, the sort;
- 21. two process  two spawned ranks on a gloo group render their windows of
-               the 256x144 @ 8 spp showcase on cuda:0, against one process;
+ 21. two process  two spawned ranks on a gloo group (named: NCCL refuses
+               two ranks on one card) render their windows of the 256x144 @
+               8 spp showcase on cuda:0, against one process;
  22. post      the post chain (bloom, sharpening) card against CPU, window
                statistics against the image's, a PNG written under build/
                and read back;
@@ -139,7 +152,8 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                against a one-shot integrator.render, then session and
                one-shot walls in turns; F2 a 16 spp checkpoint finished by
                `render --resume` against the uninterrupted sums; F3 a mesh
-               of cuda:0 listed 4 times against one device; F4
+               of cuda:0 listed 4 times (a thread a window) against one
+               device; F4
                `interactive` at 400x225 fed a command script (post edit,
                passes, stats, wire, camera edit, sun, saveall), K4's
                launches read around it; F5 --check-numerics and the NaN
@@ -2876,8 +2890,12 @@ def phase_windows(results: dict) -> None:
     ids = prender._padded_pixel_ids(cfg.n_pixels, 4)
     pad = ids.shape[0] - cfg.n_pixels
     _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     acc, st = prender.sharded_accumulate(scene, cam_w, env, 3, cfg, ids, 0,
                                          mesh=mesh, with_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = _launches(FUSED_KERNELS)
     check(all(v > 0 for v in launches.values()),
           "windows: a kernel was not launched")
@@ -2885,7 +2903,8 @@ def phase_windows(results: dict) -> None:
         scene, cam_w, env, 3, cfg, pixel_offset=cfg.n_pixels,
         n_pixels_local=pad, with_stats=True)[1]["segments"]
     log(f"windows: 4 fused windows of {ids.shape[0] // 4} pixels ({pad} "
-        f"padding), launches {launches}, segments {st['segments']} = "
+        f"padding) in threads, wall {wall:.4f} s, launches {launches}, "
+        f"segments {st['segments']} = "
         f"{fst['segments']} + {phantom} (padding), steps {st['steps']} "
         f"(one window {fst['steps']})")
     check(st["segments"] == fst["segments"] + phantom,
@@ -2931,6 +2950,295 @@ def phase_windows(results: dict) -> None:
         _sums_agree(f"{engine} pixel ids vs the frame", acc,
                     integrator.SampleBuffers(*(x[sel] for x in whole)))
         check(wst["segments"] > 0, "windows: empty frame")
+
+
+class _WindowWalls:
+    """Records the wall of every integrator.accumulate_samples call, from
+    whichever thread makes it, while active. A fused call ends in a read of
+    its segment count, so its wall covers its work on the card."""
+
+    def __enter__(self):
+        from raytracer_project_tpu_torch.ops import integrator
+
+        self.walls = []
+        self.orig = integrator.accumulate_samples
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kw)
+            self.walls.append(time.perf_counter() - t0)
+            return out
+
+        integrator.accumulate_samples = timed
+        return self
+
+    def __exit__(self, *exc):
+        from raytracer_project_tpu_torch.ops import integrator
+
+        integrator.accumulate_samples = self.orig
+
+
+def _multicard_frame():
+    """The showcase main path's frame split into 4 windows: 800x450 @ 32
+    spp, depth 10, beauty, PHYSICAL_SUN (90,000 pixels a window)."""
+    scene, cam, env = _showcase(800, 450)
+    return scene, cam, env, _cfg(800, 450, 32)
+
+
+def _timed(label: str, fn):
+    """(result, wall s, {kernel: launches}) of fn(), synchronised."""
+    import torch
+
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(FUSED_KERNELS)
+    check(all(v > 0 for v in launches.values()),
+          f"multicard {label}: a kernel was not launched")
+    return out, wall, launches
+
+
+def _multicard_threaded(results: dict, frame, one) -> None:
+    """(a) 4 windows of cuda:0, one thread each, against the same windows
+    rendered one after another and the one-device render; walls in turns
+    (threaded, serial, serial, threaded), the threads' overlap."""
+    import torch
+
+    from raytracer_project_tpu_torch.ops import integrator
+    from raytracer_project_tpu_torch.parallel import render as prender
+
+    scene, cam, env, cfg = frame
+    mesh = [torch.device("cuda", 0)] * 4
+    ids = prender._padded_pixel_ids(cfg.n_pixels, 4)
+    n_local = ids.shape[0] // 4
+
+    def threaded():
+        with _WindowWalls() as ww:
+            out = prender.sharded_accumulate(scene, cam, env, 0, cfg, ids, 0,
+                                             mesh=mesh, with_stats=True)
+        return out, ww.walls
+
+    def serial():
+        parts, segments = [], 0
+        for i in range(4):
+            buf, st = integrator.accumulate_samples(
+                scene, cam, env, 0, cfg, with_stats=True,
+                pixel_offset=i * n_local, n_pixels_local=n_local)
+            parts.append(buf)
+            segments += st["segments"]
+        return integrator.SampleBuffers(*(torch.cat(x) for x in zip(*parts))), \
+            segments
+
+    walls = {"threaded": [], "serial": []}
+    for kind in ("threaded", "serial", "serial", "threaded"):
+        if kind == "threaded":
+            ((acc, st), window_walls), wall, launches = _timed(kind, threaded)
+            overlap = sum(window_walls) / wall
+            log(f"multicard (a): threaded 4 x cuda:0 wall {wall:.4f} s, "
+                f"windows " + ", ".join(f"{w:.4f}" for w in window_walls)
+                + f" s, overlap {overlap:.3f} (sum of window walls / wall), "
+                f"launches {launches}, segments {st['segments']}, steps "
+                f"{st['steps']}")
+            walls[kind].append((wall, overlap))
+            got, got_segments = acc, st["segments"]
+            results["closest_hit"]["multicard_launches"] = launches[
+                "closest_hit"]
+        else:
+            (ser, segments), wall, launches = _timed(kind, serial)
+            log(f"multicard (a): serial 4 windows wall {wall:.4f} s, launches "
+                f"{launches}, segments {segments}")
+            walls[kind].append((wall, 1.0))
+    check(got_segments == segments == one[1]["segments"],
+          f"multicard (a): segments {got_segments} threaded, {segments} "
+          f"serial, {one[1]['segments']} one device")
+    _sums_agree("multicard (a) threaded vs serial windows", got, ser)
+    _sums_agree("multicard (a) threaded vs one device", got, one[0])
+    t, s = [w for w, _ in walls["threaded"]], [w for w, _ in walls["serial"]]
+    log(f"multicard (a): threaded {min(t):.4f}-{max(t):.4f} s, serial "
+        f"{min(s):.4f}-{max(s):.4f} s, one device {one[2]:.4f} s; overlap "
+        + ", ".join(f"{o:.3f}" for _, o in walls["threaded"]))
+
+
+def _multicard_nccl(frame, one) -> None:
+    """(b) A process group of one rank on NCCL: render_distributed over 4
+    windows of cuda:0 (make_global_mesh, the windows gathered and averaged
+    on the card, one copy to the host) and the group's statistics reduced
+    on the card, against the one-process render."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from raytracer_project_tpu_torch.ops import integrator, post
+    from raytracer_project_tpu_torch.parallel import distributed
+
+    scene, cam, env, cfg = frame
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    init = os.path.join(out_dir, "nccl_init")
+    if os.path.exists(init):
+        os.remove(init)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{init}",
+                            world_size=1, rank=0)
+    try:
+        check(dist.get_backend() == "nccl", "multicard (b): not NCCL")
+        setup = time.perf_counter() - t0
+        img, wall, launches = _timed("nccl", lambda: distributed.render_distributed(
+            scene, cam, env, 0, cfg, device="cuda:0", per_process=4))
+        want = integrator.finalize_buffers(one[0], cfg)
+        stats = post.analyze_framebuffer_psum(want["beauty"].reshape(-1, 3))
+    finally:
+        dist.destroy_process_group()
+    ref = want["beauty"].cpu().numpy()
+    ok = np.isclose(img["beauty"], ref, rtol=3e-4, atol=3e-4)
+    log(f"multicard (b): one NCCL rank, 4 windows of cuda:0: group set up in "
+        f"{setup:.2f} s, render_distributed wall {wall:.4f} s, launches "
+        f"{launches}; {int((~ok).sum())} values off the one-process render "
+        f"(max |d| {float(np.abs(img['beauty'] - ref).max()):.3g})")
+    check(bool(ok.all()) and bool(np.isfinite(img["beauty"]).all()),
+          "multicard (b): the NCCL frame differs from the one-process render")
+    whole = post.analyze_framebuffer(want["beauty"])
+    check(stats.histogram.device.type == "cuda"
+          and torch.equal(stats.histogram, whole.histogram)
+          and bool(torch.isclose(stats.average_luminance,
+                                 whole.average_luminance, rtol=1e-5)),
+          "multicard (b): the statistics reduced over NCCL differ")
+    log("  multicard (b): statistics reduced on the card equal the frame's")
+
+
+def _nccl_rank_worker(rank: int, world: int, per_process: int, init: str,
+                      out: str) -> None:
+    """One rank of multicard (d): per_process cards from LOCAL_RANK *
+    per_process, an NCCL group by default, its windows of the frame (a
+    warm-up render, then a timed one); rank 0 writes the beauty and the
+    wall."""
+    import numpy as np
+    import torch
+
+    from raytracer_project_tpu_torch.parallel import distributed
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    check(distributed.init_distributed(num_processes=world, process_id=rank,
+                                       init_method=init), "no process group")
+    try:
+        import torch.distributed as dist
+
+        check(dist.get_backend() == "nccl", "multicard (d): not NCCL")
+        scene, cam, env, cfg = _multicard_frame()
+        distributed.render_distributed(scene, cam, env, 0, cfg,
+                                       per_process=per_process)
+        t0 = time.perf_counter()
+        img = distributed.render_distributed(scene, cam, env, 0, cfg,
+                                             per_process=per_process)
+        wall = time.perf_counter() - t0
+        if distributed.is_host0():
+            np.savez(out, beauty=img["beauty"], wall=wall,
+                     cards=torch.cuda.device_count())
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _nccl_ranks(world: int, per_process: int, ref) -> None:
+    """multicard (d): `world` spawned NCCL ranks of per_process cards each,
+    their frame against the one-device render `ref` (host beauty)."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    init = os.path.join(out_dir, f"nccl_{world}x{per_process}_init")
+    if os.path.exists(init):
+        os.remove(init)
+    out = os.path.join(out_dir, f"nccl_{world}x{per_process}.npz")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_nccl_rank_worker,
+                             args=(world, per_process, f"file://{init}", out),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + 300
+    while not ctx.join(timeout=1):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("multicard (d): the NCCL ranks did not finish")
+    with np.load(out) as got:
+        beauty, wall = got["beauty"], float(got["wall"])
+    ok = np.isclose(beauty, ref, rtol=3e-4, atol=3e-4)
+    log(f"multicard (d): {world} NCCL ranks x {per_process} card(s) in "
+        f"{time.perf_counter() - t0:.1f} s, render_distributed wall "
+        f"{wall:.4f} s; {int((~ok).sum())} values off the one-device render "
+        f"(max |d| {float(np.abs(beauty - ref).max()):.3g})")
+    check(bool(ok.all()), f"multicard (d): the {world}-rank NCCL frame differs")
+
+
+def _multicard_distinct(frame, one) -> None:
+    """(d) Where the machine has two cards or more: a mesh of every card
+    (one thread each) against the one-device render; a spawned NCCL rank
+    per card; with four cards or more, ranks of two cards each."""
+    import torch
+
+    from raytracer_project_tpu_torch.ops import integrator
+    from raytracer_project_tpu_torch.parallel import render as prender
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"multicard (d): not run: this machine has {count} card (distinct "
+            "cards and two NCCL ranks need two); unverified here")
+        return
+    scene, cam, env, cfg = frame
+    mesh = prender.make_mesh()
+    ids = prender._padded_pixel_ids(cfg.n_pixels, len(mesh))
+    for _ in range(2):
+        (acc, st), wall, launches = _timed(
+            "distinct", lambda: prender.sharded_accumulate(
+                scene, cam, env, 0, cfg, ids, 0, mesh=mesh, with_stats=True))
+        log(f"multicard (d): {len(mesh)} distinct cards wall {wall:.4f} s "
+            f"(one device {one[2]:.4f} s), launches {launches}, segments "
+            f"{st['segments']}")
+    pad = ids.shape[0] - cfg.n_pixels
+    phantom = integrator.accumulate_samples(
+        scene, cam, env, 0, cfg, pixel_offset=cfg.n_pixels,
+        n_pixels_local=pad, with_stats=True)[1]["segments"] if pad else 0
+    check(st["segments"] == one[1]["segments"] + phantom,
+          "multicard (d): the distinct cards' segments differ")
+    _sums_agree("multicard (d) distinct cards vs one device",
+                integrator.SampleBuffers(*(x[:cfg.n_pixels] for x in acc)),
+                one[0])
+    ref = integrator.finalize_buffers(one[0], cfg)["beauty"].cpu().numpy()
+    _nccl_ranks(count, 1, ref)
+    if count >= 4 and count % 2 == 0:
+        _nccl_ranks(count // 2, 2, ref)
+
+
+def phase_multicard(results: dict) -> None:
+    """The frame over several devices at once (parallel/render.py's window
+    threads, parallel/distributed.py on NCCL), at the main path's size:
+    (a) 4 windows of cuda:0 in threads against the same windows in turn
+    and the one-device render, walls and overlap; (b) a one-rank NCCL
+    group through render_distributed; (d) every card, an NCCL rank per
+    card and ranks of two cards, where the machine has two cards or more.
+    Each against the one-device render: equal segments, sums within
+    rtol/atol 3e-4."""
+    import torch
+
+    from raytracer_project_tpu_torch.ops import integrator
+
+    frame = _multicard_frame()
+    scene, cam, env, cfg = frame
+    integrator.accumulate_samples(scene, cam, env, 0, cfg)   # warm-up
+    (acc, st), wall, launches = _timed("one device", lambda: (
+        integrator.accumulate_samples(scene, cam, env, 0, cfg,
+                                      with_stats=True)))
+    log(f"multicard: one device wall {wall:.4f} s, launches {launches}, "
+        f"segments {st['segments']}, {torch.cuda.device_count()} card(s)")
+    one = (acc, st, wall)
+    _multicard_threaded(results, frame, one)
+    _multicard_nccl(frame, one)
+    _multicard_distinct(frame, one)
 
 
 def phase_sort_rays(results: dict) -> None:
@@ -2994,7 +3302,8 @@ def _two_process_worker(rank: int, world: int, init: str, out: str) -> None:
     from raytracer_project_tpu_torch.parallel import distributed
 
     check(distributed.init_distributed(num_processes=world, process_id=rank,
-                                       init_method=init), "no process group")
+                                       init_method=init, backend="gloo"),
+          "no process group")
     try:
         scene, cam, env = _showcase(256, 144)
         img = distributed.render_distributed(scene, cam, env, 6,
@@ -3009,7 +3318,8 @@ def _two_process_worker(rank: int, world: int, init: str, out: str) -> None:
 
 def phase_two_process():
     """torch.multiprocessing spawns 2 ranks; each joins a gloo group
-    (init_distributed), renders its window of the 256x144 @ 8 spp showcase
+    (init_distributed with backend="gloo": NCCL refuses two ranks on one
+    card), renders its window of the 256x144 @ 8 spp showcase
     on cuda:0 and gathers to rank 0, which writes the frame; it equals the
     one-process render within rtol/atol 3e-4. A rank that fails fails the
     phase. Returns the one-process beauty (f32 [144, 256, 3], host)."""
@@ -4024,6 +4334,7 @@ def main() -> int:
     phase_pool_smoke(results)
     phase_pool_full(results)
     phase_windows(results)
+    phase_multicard(results)
     phase_sort_rays(results)
     phase_post(phase_two_process())
     phase_diff(results)

@@ -56,7 +56,9 @@ def _build_parser() -> argparse.ArgumentParser:
                         "cpu runs the kernels' plain versions)")
     r.add_argument("--devices", type=int, default=None,
                    help="split pixel windows over this many devices "
-                        "(default: 1; pass 0 for all visible CUDA devices)")
+                        "(default: 1; pass 0 for all visible CUDA devices; "
+                        "under a process group, the cards of each process, "
+                        "0 meaning 1)")
     r.add_argument("--quiet", action="store_true")
     r.add_argument("--watch", default=None, metavar="PNG",
                    help="progressive preview: rewrite this PNG with the "
@@ -189,12 +191,15 @@ def _cmd_render(args) -> int:
             image_width=config.width, image_height=config.height,
             defocus_angle=0.0, focus_dist=10.0, **cam_kw)
 
-    mesh = None
+    mesh = owners = None
     if args.devices is not None:
         from .parallel import distributed, render as prender
 
-        if distributed.init_distributed():   # False for one process
-            mesh = distributed.make_global_mesh(dev)
+        # False for one process. Under a group each rank renders on cards
+        # of its own (cuda:LOCAL_RANK, ...) unless --device names one.
+        if distributed.init_distributed(device=dev):
+            mesh, owners = distributed.make_global_mesh(
+                distributed.local_devices(dev, args.devices or 1))
         elif dev.type == "cuda":
             mesh = prender.make_mesh(args.devices or None)
         else:
@@ -202,7 +207,8 @@ def _cmd_render(args) -> int:
         log.system("Pixel windows split over %d device(s)", len(mesh))
 
     sess = RenderSession(scene, cam, env, config, log=log, key=args.seed,
-                         chunk_samples=args.chunk, mesh=mesh, device=dev)
+                         chunk_samples=args.chunk, mesh=mesh, owners=owners,
+                         device=dev)
     if args.resume and args.checkpoint:
         try:
             sess.restore(args.checkpoint)

@@ -8,7 +8,12 @@ is reused.
 
 Every C entry takes pointers and the stream as `void*`, launches on
 PyTorch's current stream, allocates nothing, and returns
-`cudaGetLastError()`; `check` raises on a non-zero code.
+`cudaGetLastError()`; `check` raises on a non-zero code. The libraries
+link the CUDA runtime statically and launch on the calling thread's
+current device, so `launch` raises unless every tensor lies on that
+device. Loading and the wrappers' launch counts (`count`) are safe from
+several threads at once: parallel/render.py renders each window of a
+mesh in a thread of its own.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -73,6 +79,10 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}
+# Held while a library is built or loaded, and while a count is updated.
+_load_lock = threading.RLock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -131,30 +141,58 @@ def build_all(force: bool = False, names=SOURCES) -> float:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, building it first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        if _stale(name):
-            build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
-    return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            if _stale(name):
+                build_all()
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _loaded[name] = lib
+        return lib
+
+
+def _entry(entry: str):
+    """C entry `entry` with its argument and result types declared."""
+    with _load_lock:
+        fn = _entries.get(entry)
+        if fn is None:
+            source, argtypes = SIGNATURES[entry]
+            fn = getattr(load(source), entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _entries[entry] = fn
+        return fn
 
 
 def launch(entry: str, *args) -> None:
     """Call C entry `entry` on PyTorch's current stream (appended as the
-    last argument); tensors pass as their data pointers. Raises if the
-    launch failed."""
-    source, argtypes = SIGNATURES[entry]
-    fn = getattr(load(source), entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    last argument); tensors pass as their data pointers. Raises if a
+    tensor lies on another device than the calling thread's current one
+    (the stream's and the launch's), or if the launch failed."""
+    fn = _entry(entry)
+    cur = torch.cuda.current_device()
+    vals = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.get_device() != cur:
+                raise RuntimeError(
+                    f"{entry}: a tensor on {a.device}, but the calling "
+                    f"thread's current device is cuda:{cur}; launch inside "
+                    f"torch.cuda.device({a.device})")
+            a = a.data_ptr()
+        vals.append(a)
     vals.append(torch.cuda.current_stream().cuda_stream)
-    if len(vals) != len(argtypes):
+    if len(vals) != len(fn.argtypes):
         # ctypes would pass the surplus as 32-bit ints, cutting pointers.
         raise TypeError(f"{entry}: {len(vals)} arguments with the stream, "
-                        f"its signature has {len(argtypes)}")
+                        f"its signature has {len(fn.argtypes)}")
     check(fn(*vals), entry)
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch count `wrapper.<attr>`."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def check(code: int, what: str) -> None:

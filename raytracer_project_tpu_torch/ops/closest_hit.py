@@ -243,7 +243,7 @@ def closest_hit(od, tmin: float, tables: ScanTables):
     if od.device.type == "cpu":
         return closest_hit_plain(od, tmin, tables.coeffs, tables.counts)
     out = _launch("closest_hit_od", od, od.shape[1], tmin, tables)
-    closest_hit.launches += 1
+    kernels.count(closest_hit)
     return out
 
 
@@ -260,7 +260,7 @@ def closest_hit_feats(feats, tmin: float, tables: ScanTables):
         return closest_hit_feats_plain(feats, tmin, tables.coeffs,
                                        tables.counts)
     out = _launch("closest_hit_feats", feats, feats.shape[1], tmin, tables)
-    closest_hit_feats.launches += 1
+    kernels.count(closest_hit_feats)
     return out
 
 

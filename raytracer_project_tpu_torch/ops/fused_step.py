@@ -37,6 +37,8 @@ tensors.
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -379,7 +381,7 @@ def decode(tables: FusedTables, od, t, idx, typ, aparams):
         1 if tables.scan.counts[2] else 0,
         float(tables.atlas_hw[0]), float(tables.atlas_hw[1]),
         1 if tables.env_hw is not None else 0, float(eh), float(ew), out)
-    decode.launches += 1
+    kernels.count(decode)
     return out
 
 
@@ -859,9 +861,9 @@ def shade_advance(tables: FusedTables, rec, state_f, state_i, next_work,
         next_work, segments, out_f, out_i, contrib, tgt, counts, next_out,
         seg_out, live_count)
     if sp.features:
-        shade_advance.features_launches += 1
+        kernels.count(shade_advance, "features_launches")
     else:
-        shade_advance.launches += 1
+        kernels.count(shade_advance)
     return out_f, out_i, contrib, tgt, next_out, seg_out, live_count
 
 
@@ -981,9 +983,9 @@ def shade_accumulate(tables: FusedTables, hits, state_f, state_i, next_work,
         float(eh), float(ew), stride, next_work, segments, out_f, out_i, acc,
         counts, next_out, seg_out, live_count, steps)
     if sp.features:
-        shade_accumulate.features_launches += 1
+        kernels.count(shade_accumulate, "features_launches")
     else:
-        shade_accumulate.launches += 1
+        kernels.count(shade_accumulate)
     return out_f, out_i, next_out, seg_out, live_count, steps
 
 
@@ -1003,6 +1005,52 @@ def pool_size(config, total_work: int) -> int:
     p = config.pool_lanes or DEFAULT_POOL_LANES
     p = -(-p // B_BLOCK) * B_BLOCK
     return min(p, total_work)
+
+
+_turns = threading.local()
+
+
+class HostTurns:
+    """The host, taken in turns by the threads that render windows on the
+    card (parallel/render.py): a thread holds its turn (`held`) while it
+    runs host code and gives it up while its pool waits on the card
+    (_wait). Without turns each of the pool's torch ops and launches hands
+    the interpreter lock between the threads, and windows of one card
+    render slower than one after another (tools/bench_windows.py,
+    no_turns)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def acquire(self) -> None:
+        self._lock.acquire()
+
+    def release(self) -> None:
+        self._lock.release()
+
+    @contextlib.contextmanager
+    def held(self):
+        """The block in this thread's turns."""
+        _turns.current = self
+        self.acquire()
+        try:
+            yield
+        finally:
+            self.release()
+            _turns.current = None
+
+
+def _wait(ev) -> None:
+    """ev.synchronize(), giving up the host turn meanwhile (HostTurns)."""
+    turns = getattr(_turns, "current", None)
+    if turns is None:
+        ev.synchronize()
+        return
+    turns.release()
+    try:
+        ev.synchronize()
+    finally:
+        turns.acquire()
 
 
 def _host_copy(x: torch.Tensor):
@@ -1098,7 +1146,7 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
         if len(pending) >= lag:
             ev, live_host = pending.popleft()
             if ev is not None:
-                ev.synchronize()
+                _wait(ev)
             if int(live_host[0]) == 0:
                 break
         # Steps after the pool drains are no-ops: nothing is live, nothing
@@ -1121,6 +1169,8 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
 
     out = SampleBuffers(*(get(f) for f in SampleBuffers._fields))
     if with_stats:
-        return out, {"segments": int(segments.item()),
-                     "steps": int(steps.item())}
+        ev, counts = _host_copy(torch.cat([segments, steps]))
+        if ev is not None:
+            _wait(ev)
+        return out, {"segments": int(counts[0]), "steps": int(counts[1])}
     return out

@@ -1,6 +1,6 @@
 """Two checkouts of the port timed in turns on one card.
 
-    python -m raytracer_project_tpu_torch.tools.bench_turns PARENT_DIR [RUNS]
+    python -m raytracer_project_tpu_torch.tools.bench_turns PARENT_DIR [RUNS [CASE ...]]
 
 PARENT_DIR is another checkout of the repository (for example the parent
 commit unpacked with `git archive`); this checkout is the change. One
@@ -8,6 +8,7 @@ worker process per checkout imports its own package, builds its kernels
 and renders each case once to warm up; the main process then asks them for
 timed renders in turns, parent, change, change, parent, ..., RUNS of each
 (5 by default), so that both see the same card, clocks and neighbours.
+CASEs name the cases to time (all of them by default).
 
 Cases (the port's render entry, `integrator.render`, on the card):
   showcase   the showcase, 800x450 @ 32 spp, depth 10, beauty (the fused
@@ -15,10 +16,14 @@ Cases (the port's render entry, `integrator.render`, on the card):
   full_fog   showcase_scene(use_fog=True), 800x450 @ 32 spp, depth 10,
              the three AOVs and both split passes (phase features full);
   config2    BASELINE config 2, the Cornell box with fog 0.002, 512x512 @
-             64 spp, depth 8, solid black sky, beauty.
+             64 spp, depth 8, solid black sky, beauty;
+  f3_mesh    chip_smoke.py's frontend F3: a RenderSession over a mesh of
+             cuda:0 listed 4 times, `render --preset showcase` at 800x450 @
+             32 spp, depth 10, the AOVs on, in chunks of 4 spp.
 
 A timed render is the wall of a synchronised `render(..., with_stats=True)`
-whose beauty is read back to the host. Prints one JSON line per render,
+(for f3_mesh, `render_progressive` and the session's buffers) whose beauty
+is read back to the host. Prints one JSON line per render,
 then one summary line (min, median, max wall per case and side), the
 card's name and power limit. Needs a CUDA device.
 """
@@ -30,7 +35,7 @@ import os
 import subprocess
 import sys
 
-CASES = ("showcase", "full_fog", "config2")
+CASES = ("showcase", "full_fog", "config2", "f3_mesh")
 
 _WORKER = r"""
 import json, sys, time
@@ -47,8 +52,30 @@ SUN = dict(sun_direction=(0.4, 0.7, 0.2), sun_intensity=6.0)
 OFF = dict(use_albedo=False, use_normal=False, use_z_depth=False)
 
 
+def mesh_session():
+    from raytracer_project_tpu_torch import cli
+    from raytracer_project_tpu_torch.utils.session import RenderSession
+
+    scene, cam_kw = cli._preset("showcase")
+    cam = camera.make_camera(image_width=800, image_height=450,
+                             defocus_angle=0.0, focus_dist=10.0, **cam_kw)
+    cfg = integrator.RenderConfig(env_mode=environment.PHYSICAL_SUN, width=800,
+                                  height=450, samples_per_pixel=32, max_depth=10)
+    parts = (scene.to("cuda"), cam, environment.make_environment(), cfg)
+
+    def run(seed):
+        sess = RenderSession(*parts, key=seed, chunk_samples=4,
+                             mesh=[torch.device("cuda", 0)] * 4, device="cuda")
+        sess.render_progressive(cfg.samples_per_pixel)
+        return sess.buffers()["beauty"], {"segments": sess.segments_traced,
+                                          "steps": 0}
+    return run
+
+
 def case(name):
     dev = torch.device("cuda")
+    if name == "f3_mesh":
+        return mesh_session()
     if name == "config2":
         scene = presets.cornell_box_scene(with_fog=True, fog_density=0.002)
         cam = camera.make_camera(image_width=512, image_height=512, vfov=40.0,
@@ -66,24 +93,28 @@ def case(name):
         kw = (dict(use_reflection=True, use_refraction=True) if fog else OFF)
         cfg = integrator.RenderConfig(width=800, height=450,
                                       samples_per_pixel=32, max_depth=10, **kw)
-    return scene.to(dev), cam, env, cfg
+    parts = (scene.to(dev), cam, env)
+
+    def run(seed):
+        out, stats = integrator.render(*parts, seed, cfg, with_stats=True)
+        return out["beauty"], stats
+    return run
 
 
-inputs = {}
+runs = {}
 for line in sys.stdin:
     name = line.strip()
-    if name not in inputs:
-        inputs[name] = case(name)
-        integrator.render(*inputs[name][:3], 0, inputs[name][3])["beauty"].cpu()
-    scene, cam, env, cfg = inputs[name]
+    if name not in runs:
+        runs[name] = case(name)
+        runs[name](0)[0].cpu()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, stats = integrator.render(scene, cam, env, 1, cfg, with_stats=True)
-    out["beauty"].cpu()
+    beauty, stats = runs[name](1)
+    beauty = beauty.cpu()
     wall = time.perf_counter() - t0
     print(json.dumps({"case": name, "wall_s": wall,
                       "segments": stats["segments"], "steps": stats["steps"],
-                      "mean": float(out["beauty"].mean())}), flush=True)
+                      "mean": float(beauty.mean())}), flush=True)
 """
 
 
@@ -102,9 +133,11 @@ def _ask(proc: subprocess.Popen, name: str) -> dict:
     return json.loads(line)
 
 
-def main(parent: str, runs: int = 5) -> dict:
+def main(parent: str, runs: int = 5, cases=CASES) -> dict:
     import torch
 
+    if not set(cases) <= set(CASES):
+        raise ValueError(f"unknown cases {sorted(set(cases) - set(CASES))}")
     if not torch.cuda.is_available():
         raise RuntimeError("bench_turns needs a CUDA device")
     change = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -113,7 +146,7 @@ def main(parent: str, runs: int = 5) -> dict:
              "change": _worker(change)}
     walls: dict = {}
     try:
-        for name in CASES:
+        for name in cases:
             order = [("parent", "change", "change", "parent")[k % 4]
                      for k in range(2 * runs)]
             for side in order:
@@ -142,4 +175,5 @@ def main(parent: str, runs: int = 5) -> dict:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], *(int(a) for a in sys.argv[2:3]))
+    main(sys.argv[1], *(int(a) for a in sys.argv[2:3]),
+         *([sys.argv[3:]] if sys.argv[3:] else []))

@@ -160,7 +160,7 @@ def ablate(od, tmin: float, tables: k1.ScanTables, variant: str):
     out = k1._outputs(od, od.shape[1])
     kernels.launch("probe_a1_ablate", VARIANTS.index(variant),
                    *k1.scan_args(od, od.shape[1], tmin, tables), 0, *out)
-    ablate.launches += 1
+    kernels.count(ablate)
     return out
 
 
@@ -186,7 +186,7 @@ def ablate_dense(od, tmin: float, coeffs, bounds, cols, variant: str):
     for coeff, bnd, c in zip(coeffs, bounds, cols):
         args += [coeff, coeff.shape[2], bnd, c]
     kernels.launch("probe_a1_ablate_dense", *args, 0, *out)
-    ablate_dense.launches += 1
+    kernels.count(ablate_dense)
     return out
 
 

@@ -118,7 +118,7 @@ def decode_stage(stage: int, tables, od, t, idx, typ):
     if tables.rectab.data_ptr() % 16:
         raise ValueError("the stage kernel takes a 16 B aligned rectab")
     out = _launch("probe_decode_stage", stage, tables, od, t, idx, typ)
-    decode_stage.launches += 1
+    kernels.count(decode_stage)
     return out
 
 
@@ -134,7 +134,7 @@ def decode_stage_scalar(stage: int, tables, od, t, idx, typ):
     if od.device.type != "cuda":
         raise ValueError("the yardstick stage runs on CUDA tensors only")
     out = _launch("probe_decode_stage_scalar", stage, tables, od, t, idx, typ)
-    decode_stage_scalar.launches += 1
+    kernels.count(decode_stage_scalar)
     return out
 
 

@@ -115,7 +115,7 @@ def onehot_fetch(t, idx, table, n_out: int, mode: str,
         raise ValueError("the fetch kernel takes a 16 B aligned table")
     res = _launch("probe_onehot", t, idx, table, n_out, mode,
                   -1 if staged is None else int(staged))
-    onehot_fetch.launches += 1
+    kernels.count(onehot_fetch)
     return res
 
 
@@ -129,7 +129,7 @@ def onehot_fetch_scalar(t, idx, table, n_out: int, mode: str):
     if t.device.type != "cuda":
         raise ValueError("the yardstick fetch runs on CUDA tensors only")
     res = _launch("probe_onehot_scalar", t, idx, table, n_out, mode)
-    onehot_fetch_scalar.launches += 1
+    kernels.count(onehot_fetch_scalar)
     return res
 
 

@@ -18,11 +18,12 @@ The reference engine's render thread and dirty-flag state machine
  * per-pass display/export through the post chain, the denoisers at
    display time, and the BVH wireframe over the live render;
  * progress/ETA and rays/s (main.cpp:1399-1424);
- * mesh=[devices] splits each step's pixels over the devices
-   (parallel/render.sharded_accumulate). Under a torch.distributed group
-   of more than one process, mesh is one entry per rank
-   (distributed.make_global_mesh): each rank renders its own window and
-   `buffers()` gathers the windows (distributed.gather_to_host0).
+ * mesh=[devices] splits each step's pixels over the devices, every
+   window at once (parallel/render.sharded_accumulate). Under a
+   torch.distributed group of more than one process, mesh and owners come
+   from distributed.make_global_mesh: each rank renders the windows it owns
+   (one or several cards) and `buffers()` gathers the windows of every
+   rank (distributed.all_gather: on the cards under NCCL).
 
 The reference engine's dirty flags map to:
   should_restart  -> RenderSession.reset() (new accumulator)
@@ -82,15 +83,31 @@ def as_key(key) -> rng.Key:
 
 class RenderSession:
     """Owns the progressive accumulator on `device` (default the card,
-    integrator.resolve_device; mesh[0] when a mesh is given)."""
+    integrator.resolve_device). With a mesh, on the device of this
+    process's first window: owners[i] is the rank that renders window i
+    (distributed.make_global_mesh; None, one process renders them all)."""
 
     def __init__(self, scene, camera: cam_mod.Camera,
                  env, config: integrator.RenderConfig,
                  post_params: post_mod.PostParams | None = None,
                  post_config: post_mod.PostConfig | None = None,
                  key=None, log: applog.AppLog | None = None,
-                 mesh=None, chunk_samples: int = 4, device=None):
-        self.device = (torch.device(mesh[0]) if mesh is not None
+                 mesh=None, owners=None, chunk_samples: int = 4,
+                 device=None):
+        self._rank, world = distributed._world()
+        self._ranks = world if mesh is not None else 1
+        if mesh is not None:
+            if owners is None:
+                if self._ranks > 1:
+                    raise ValueError(
+                        f"a mesh under {self._ranks} ranks needs its owners "
+                        "(distributed.make_global_mesh)")
+                owners = [self._rank] * len(mesh)
+            if len(owners) != len(mesh):
+                raise ValueError(f"{len(owners)} owners for a mesh of "
+                                 f"{len(mesh)} entries")
+            self._windows = distributed.my_windows(owners)
+        self.device = (torch.device(mesh[self._windows[0]]) if mesh is not None
                        else integrator.resolve_device(device))
         self.scene = scene.to(self.device)
         self.camera = camera.to(self.device)
@@ -105,21 +122,18 @@ class RenderSession:
         self.chunk_samples = chunk_samples
         self._denoiser = None
 
-        self._rank, world = distributed._world()
-        self._ranks = world if mesh is not None else 1
         n = config.n_pixels
         if mesh is None:
             self._ids = None
-            self._n_pad = n
+            self._n_pad = self._n_local = n
+            self._start = 0
         else:
-            if self._ranks > 1 and len(mesh) != self._ranks:
-                raise ValueError(f"a mesh of {len(mesh)} entries under "
-                                 f"{self._ranks} ranks: pass one per rank "
-                                 "(distributed.make_global_mesh)")
             self._ids = prender._padded_pixel_ids(n, len(mesh))
             self._n_pad = int(self._ids.shape[0])
-        # Rows this process holds: its window under several ranks.
-        self._n_local = self._n_pad // self._ranks
+            # Rows this process holds: its windows, from window _windows[0].
+            per = self._n_pad // len(mesh)
+            self._n_local = per * len(self._windows)
+            self._start = per * self._windows[0]
         self.cancel_requested = False
         self._start_time: float | None = None
         self.reset()
@@ -143,15 +157,10 @@ class RenderSession:
         """(sums, stats) of cfg.samples_per_pixel samples from samples_done
         on, each counted against the whole render's AOV budget."""
         kw = dict(with_stats=True, aux=self.config.aux_samples)
-        if self._ranks > 1:
-            return integrator.accumulate_samples(
-                self.scene, self.camera, self.env, self.key, cfg, None,
-                self.samples_done, pixel_offset=self._rank * self._n_local,
-                n_pixels_local=self._n_local, **kw)
         if self.mesh is not None:
             return prender.sharded_accumulate(
                 self.scene, self.camera, self.env, self.key, cfg, self._ids,
-                self.samples_done, mesh=self.mesh, **kw)
+                self.samples_done, mesh=self.mesh, windows=self._windows, **kw)
         return integrator.accumulate_samples(
             self.scene, self.camera, self.env, self.key, cfg, None,
             self.samples_done, **kw)
@@ -222,8 +231,7 @@ class RenderSession:
         acc = self.acc
         if self._ranks > 1:
             acc = integrator.SampleBuffers(*(
-                torch.as_tensor(distributed.gather_to_host0(x)).to(self.device)
-                for x in acc))
+                distributed.all_gather(x).to(self.device) for x in acc))
         if acc.beauty.shape[0] == n:
             return acc
         return integrator.SampleBuffers(*(x[:n] for x in acc))
@@ -236,11 +244,11 @@ class RenderSession:
 
     def statistics(self) -> post_mod.ImageStatistics:
         """Image statistics of the averaged beauty. Under several ranks each
-        rank reduces its own window's pixels (its padding rows cut) over
+        rank reduces its own windows' pixels (their padding rows cut) over
         the group, without gathering the image."""
         if self._ranks > 1:
-            start = self._rank * self._n_local
-            rows = max(0, min(self.config.n_pixels - start, self._n_local))
+            rows = max(0, min(self.config.n_pixels - self._start,
+                              self._n_local))
             img = self.acc.beauty[:rows] / max(self.samples_done, 1)
             return post_mod.analyze_framebuffer_psum(img)
         return post_mod.analyze_framebuffer(self.buffers()["beauty"])
@@ -344,7 +352,7 @@ class RenderSession:
             if stored != current:
                 raise ValueError(
                     f"checkpoint config mismatch: {stored} != {current}")
-            start = self._rank * self._n_local
+            start = self._start
 
             def load(k):
                 arr = np.asarray(data[k], np.float32)

@@ -8,6 +8,7 @@ has only PyTorch:
 """
 
 import dataclasses
+import threading
 import types
 
 import numpy as np
@@ -1157,3 +1158,123 @@ def test_smoke_device_golden_bites(cuda, offset):
         assert err is not None and "drifted from device golden" in err
     else:
         assert err is None
+
+
+def _window_frame(cuda, w=200, h=113, spp=8):
+    scene = presets.showcase_scene().to(cuda)
+    cam = tcam.make_camera(image_width=w, image_height=h, **CAM_KW)
+    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
+                                sun_intensity=6.0)
+    cfg = integrator.RenderConfig(width=w, height=h, samples_per_pixel=spp)
+    return scene, cam, env, cfg
+
+
+@pytest.mark.cuda
+def test_threaded_windows_on_card_equal_serial_windows(cuda):
+    """Four windows of cuda:0, each in a thread of its own on a stream of
+    its own, against the same four rendered one after another in this
+    thread: segments equal, sums within rtol/atol 3e-4 (the card's
+    accumulator adds in no fixed order), K1 launched by the windows."""
+    from raytracer_project_tpu_torch.parallel import render as prender
+
+    scene, cam, env, cfg = _window_frame(cuda)
+    ids = prender._padded_pixel_ids(cfg.n_pixels, 4)
+    n_local = ids.shape[0] // 4
+    k1.closest_hit.launches = 0
+    acc, st = prender.sharded_accumulate(
+        scene, cam, env, 5, cfg, ids, 0, mesh=[torch.device("cuda", 0)] * 4,
+        with_stats=True)
+    assert k1.closest_hit.launches > 0
+    parts, segments = [], 0
+    for i in range(4):
+        buf, wst = integrator.accumulate_samples(
+            scene, cam, env, 5, cfg, with_stats=True, pixel_offset=i * n_local,
+            n_pixels_local=n_local)
+        parts.append(buf)
+        segments += wst["segments"]
+    assert st["segments"] == segments
+    for name, a, *b in zip(acc._fields, acc, *parts):
+        torch.testing.assert_close(a, torch.cat(b), rtol=3e-4, atol=3e-4,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_render_distributed(cuda, tmp_path):
+    """A process group of one rank on NCCL: render_distributed (two windows
+    of cuda:0, gathered on the card) against the one-process render within
+    rtol/atol 3e-4, and the group's statistics reduced on the card against
+    the frame's."""
+    import torch.distributed as dist
+
+    from raytracer_project_tpu_torch.ops import post
+    from raytracer_project_tpu_torch.parallel import distributed
+
+    scene, cam, env, cfg = _window_frame(cuda)
+    one = integrator.render(scene, cam, env, 5, cfg)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'init'}",
+                            world_size=1, rank=0)
+    try:
+        mesh, owners = distributed.make_global_mesh(
+            distributed.local_devices("cuda:0", 2))
+        assert owners == [0, 0] and len(mesh) == 2
+        img = distributed.render_distributed(scene, cam, env, 5, cfg,
+                                             device="cuda:0", per_process=2)
+        stats = post.analyze_framebuffer_psum(one["beauty"].reshape(-1, 3))
+    finally:
+        dist.destroy_process_group()
+    for name, a in one.items():
+        np.testing.assert_allclose(img[name], a.cpu().numpy(), rtol=3e-4,
+                                   atol=3e-4, err_msg=name)
+    whole = post.analyze_framebuffer(one["beauty"])
+    assert stats.histogram.device.type == "cuda"
+    assert torch.equal(stats.histogram, whole.histogram)
+    torch.testing.assert_close(stats.average_luminance,
+                               whole.average_luminance, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_distinct_card_mesh(cuda):
+    """Windows on distinct cards at once (every card of the machine)
+    against the one-device render; needs two cards or more."""
+    from raytracer_project_tpu_torch.parallel import render as prender
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"a mesh of distinct cards needs two; this machine has "
+                    f"{count}")
+    scene, cam, env, cfg = _window_frame(cuda)
+    one = integrator.render(scene, cam, env, 5, cfg)
+    got = prender.render_sharded(scene, cam, env, 5, cfg, prender.make_mesh())
+    for name, a in one.items():
+        torch.testing.assert_close(got[name], a, rtol=3e-4, atol=3e-4,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_launch_on_another_current_device_raises(cuda, monkeypatch):
+    """A kernel launched from a thread whose current device is not its
+    tensors' raises before it launches (the kernels launch on the calling
+    thread's device). With one card, current_device stands in for cuda:1."""
+    scene = presets.showcase_scene().to(cuda)
+    tables = k1.scan_tables(scene)
+    od = torch.zeros((6, 256), device="cuda:0")
+    od[4] = 1.0
+    errors = []
+
+    def run():
+        if torch.cuda.device_count() >= 2:
+            torch.cuda.set_device(1)
+        try:
+            k1.closest_hit(od, 1e-3, tables)
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    if torch.cuda.device_count() < 2:
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    k1.closest_hit.launches = 0
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert errors and "current device is cuda:1" in errors[0], errors
+    assert k1.closest_hit.launches == 0

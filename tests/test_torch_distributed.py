@@ -35,7 +35,9 @@ def _setup():
 def _worker(rank, world, init_file, out_path):
     torch.set_num_threads(1)
     assert distributed.init_distributed(num_processes=world, process_id=rank,
-                                        init_method=f"file://{init_file}")
+                                        init_method=f"file://{init_file}",
+                                        device="cpu")
+    assert torch.distributed.get_backend() == "gloo"
     try:
         scene, cam, env, cfg = _setup()
         img = distributed.render_distributed(scene, cam, env, 7, cfg,
@@ -87,8 +89,10 @@ def test_init_distributed_is_a_noop_for_one_process(monkeypatch):
     assert distributed.init_distributed() is False
     assert not torch.distributed.is_initialized()
     assert distributed.is_host0()
-    assert len(distributed.make_global_mesh("cpu")) == 1
+    mesh, owners = distributed.make_global_mesh(
+        distributed.local_devices("cpu"))
+    assert mesh == [torch.device("cpu")] and owners == [0]
     ids = np.arange(10)
-    np.testing.assert_array_equal(distributed.local_shard(ids, ["cpu"]), ids)
+    np.testing.assert_array_equal(distributed.local_shard(ids, owners), ids)
     x = torch.arange(6.0).reshape(3, 2)
     np.testing.assert_array_equal(distributed.gather_to_host0(x), x.numpy())

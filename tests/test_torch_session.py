@@ -254,9 +254,12 @@ def test_mesh_session_equals_the_single_device_one(port_prog):
 def _rank_worker(rank, world, init_file, out_path, ck_path):
     torch.set_num_threads(1)
     assert distributed.init_distributed(num_processes=world, process_id=rank,
-                                        init_method=f"file://{init_file}")
+                                        init_method=f"file://{init_file}",
+                                        device="cpu")
     try:
-        s = _port(mesh=distributed.make_global_mesh("cpu"))
+        mesh, owners = distributed.make_global_mesh(
+            distributed.local_devices("cpu"))
+        s = _port(mesh=mesh, owners=owners)
         s.render_progressive(4)
         s.checkpoint(ck_path)
         s.render_progressive(8)
