@@ -70,7 +70,9 @@ def _build_parser() -> argparse.ArgumentParser:
                         "(reference cadence 150 ms, main.cpp:1556)")
     r.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the render (CUDA "
-                        "activity on the card) to DIR/trace.json")
+                        "activity on the card, the port's spans as host "
+                        "events of every thread: utils/spans.py) to "
+                        "DIR/trace.json")
     r.add_argument("--check-numerics", action="store_true",
                    help="render one 1 spp chunked debug frame on the CPU "
                         "(the kernels' plain versions) under the NaN trap "
@@ -247,12 +249,17 @@ def _cmd_render(args) -> int:
 
     t0 = time.perf_counter()
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import (
+            ProfilerActivity, _ExperimentalConfig, profile)
 
         acts = [ProfilerActivity.CPU]
         if dev.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        # Every thread's host events: a mesh renders its windows in
+        # threads of their own (parallel/render.run_windows).
+        every_thread = _ExperimentalConfig(profile_all_threads=True)
+        with profile(activities=acts,
+                     experimental_config=every_thread) as prof:
             sess.render_progressive(total, callback=progress)
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")

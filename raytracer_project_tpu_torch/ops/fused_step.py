@@ -55,6 +55,7 @@ from ..models import environment as env_mod
 from ..models import materials as mat_mod
 from ..models import textures as tex_mod
 from ..models.geometry import PRIM_BOX, PRIM_SPHERE, PRIM_TRIANGLE
+from ..utils import spans
 from . import closest_hit as k1
 from .intersect import (
     _BOX_DEFAULT_ROW, _SPHERE_DEFAULT_ROW, _TRI_DEFAULT_ROW, _box_record_soa,
@@ -1044,11 +1045,13 @@ def _wait(ev) -> None:
     """ev.synchronize(), giving up the host turn meanwhile (HostTurns)."""
     turns = getattr(_turns, "current", None)
     if turns is None:
-        ev.synchronize()
+        with spans.span("pool.wait"):
+            ev.synchronize()
         return
     turns.release()
     try:
-        ev.synchronize()
+        with spans.span("pool.wait"):
+            ev.synchronize()
     finally:
         turns.acquire()
 
@@ -1087,90 +1090,102 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
     (int64 on the device, exact) and steps taken with live lanes."""
     from .integrator import SampleBuffers
 
-    dev = scene.spheres.center.device
-    n = n_pixels_local if n_pixels_local is not None else config.n_pixels
-    spp = config.samples_per_pixel
-    aovs = tuple(name for name, on in zip(AOVS, (
-        config.use_albedo, config.use_normal, config.use_z_depth)) if on)
-    want_spec = config.use_reflection or config.use_refraction
-    n_beauty = n * spp
-    total_work = n_beauty * (2 if want_spec else 1)
-    p = pool_size(config, total_work)
-    tables = build_tables(scene, env, config.env_mode)
-    aparams = _aparams(env, dev)
-    bparams = _bparams(cam, env, dev)
-    n_volumes = scene.volumes.count if scene.volumes is not None else 0
-    sp = StepParams(seed=rng.seed_from_int(seed), sample_offset=int(sample_offset),
-                    n_pixels=n, width=config.width, total_work=total_work,
-                    max_depth=config.max_depth, env_mode=config.env_mode,
-                    aux=int(aux), z_max=float(config.z_depth_max_dist),
-                    aovs=aovs, use_reflection=config.use_reflection,
-                    use_refraction=config.use_refraction, n_beauty=n_beauty,
-                    n_volumes=n_volumes, pixel_offset=int(pixel_offset))
+    with spans.span("pool.call"):
+        dev = scene.spheres.center.device
+        n = n_pixels_local if n_pixels_local is not None else config.n_pixels
+        spp = config.samples_per_pixel
+        aovs = tuple(name for name, on in zip(AOVS, (
+            config.use_albedo, config.use_normal, config.use_z_depth)) if on)
+        want_spec = config.use_reflection or config.use_refraction
+        n_beauty = n * spp
+        total_work = n_beauty * (2 if want_spec else 1)
+        p = pool_size(config, total_work)
+        with spans.span("pool.setup"):
+            with spans.span("tables.build"):
+                tables = build_tables(scene, env, config.env_mode)
+            aparams = _aparams(env, dev)
+            bparams = _bparams(cam, env, dev)
+            n_volumes = (scene.volumes.count if scene.volumes is not None
+                         else 0)
+            sp = StepParams(
+                seed=rng.seed_from_int(seed), sample_offset=int(sample_offset),
+                n_pixels=n, width=config.width, total_work=total_work,
+                max_depth=config.max_depth, env_mode=config.env_mode,
+                aux=int(aux), z_max=float(config.z_depth_max_dist),
+                aovs=aovs, use_reflection=config.use_reflection,
+                use_refraction=config.use_refraction, n_beauty=n_beauty,
+                n_volumes=n_volumes, pixel_offset=int(pixel_offset))
 
-    # Initial fill: the same (pixel, sample) decode as the respawn.
-    w0 = torch.arange(p, dtype=torch.int64, device=dev)
-    wc = torch.clamp(w0, max=total_work - 1)
-    spec0 = wc >= n_beauty
-    wc = torch.where(spec0, wc - n_beauty, wc)
-    samp_rel = wc // n
-    li0 = (wc - samp_rel * n + pixel_offset).to(torch.int32)
-    samp0 = (sample_offset + samp_rel).to(torch.int32)
-    lr0 = rng.LaneRng(sp.seed, rng.u32(li0), rng.u32(samp0), 0)
-    o0, d0 = camera_mod.generate_rays_soa(cam.to(dev), lr0, li0, config.width)
-    live0 = (w0 < total_work).to(torch.int32)
-    ones = torch.ones((p,), dtype=torch.float32, device=dev)
-    zeros = torch.zeros((p,), dtype=torch.float32, device=dev)
-    zeros_i = torch.zeros_like(live0)
-    rows_f = [*o0, *d0, ones, ones, ones, zeros, zeros, zeros]
-    rows_i = [live0, zeros_i, samp0, li0]
-    if want_spec:
-        rows_f += [ones, ones, ones]
-        rows_i += [spec0.to(torch.int32), zeros_i, zeros_i]
-    state_f = torch.stack(rows_f)
-    state_i = torch.stack(rows_i)
-    next_work = torch.full((1,), min(p, total_work), dtype=torch.int32,
-                           device=dev)
-    live_count = live0.sum().to(torch.int32).reshape(1)
-    segments = torch.zeros((1,), dtype=torch.int64, device=dev)
-    steps = torch.zeros((1,), dtype=torch.int64, device=dev)
+            # Initial fill: the same (pixel, sample) decode as the respawn.
+            w0 = torch.arange(p, dtype=torch.int64, device=dev)
+            wc = torch.clamp(w0, max=total_work - 1)
+            spec0 = wc >= n_beauty
+            wc = torch.where(spec0, wc - n_beauty, wc)
+            samp_rel = wc // n
+            li0 = (wc - samp_rel * n + pixel_offset).to(torch.int32)
+            samp0 = (sample_offset + samp_rel).to(torch.int32)
+            lr0 = rng.LaneRng(sp.seed, rng.u32(li0), rng.u32(samp0), 0)
+            o0, d0 = camera_mod.generate_rays_soa(cam.to(dev), lr0, li0,
+                                                  config.width)
+            live0 = (w0 < total_work).to(torch.int32)
+            ones = torch.ones((p,), dtype=torch.float32, device=dev)
+            zeros = torch.zeros((p,), dtype=torch.float32, device=dev)
+            zeros_i = torch.zeros_like(live0)
+            rows_f = [*o0, *d0, ones, ones, ones, zeros, zeros, zeros]
+            rows_i = [live0, zeros_i, samp0, li0]
+            if want_spec:
+                rows_f += [ones, ones, ones]
+                rows_i += [spec0.to(torch.int32), zeros_i, zeros_i]
+            state_f = torch.stack(rows_f)
+            state_i = torch.stack(rows_i)
+            next_work = torch.full((1,), min(p, total_work),
+                                   dtype=torch.int32, device=dev)
+            live_count = live0.sum().to(torch.int32).reshape(1)
+            segments = torch.zeros((1,), dtype=torch.int64, device=dev)
+            steps = torch.zeros((1,), dtype=torch.int64, device=dev)
 
-    # One flat accumulator, channel c at [c * stride, c * stride + n); K3
-    # fused adds each lane's finished values to it.
-    acc = new_accumulator(sp, dev)
-    stride = n + 1
+            # One flat accumulator, channel c at [c * stride, c * stride + n);
+            # K3 fused adds each lane's finished values to it.
+            acc = new_accumulator(sp, dev)
+            stride = n + 1
 
-    lag = 1 if dev.type == "cpu" else LIVE_LAG
-    pending = collections.deque([_host_copy(live_count)])
-    while True:
-        if len(pending) >= lag:
-            ev, live_host = pending.popleft()
-            if ev is not None:
-                _wait(ev)
-            if int(live_host[0]) == 0:
-                break
-        # Steps after the pool drains are no-ops: nothing is live, nothing
-        # spawns, nothing is added and the step count stays.
-        hits = k1.closest_hit(state_f[:6], T_MIN, tables.scan)
-        (state_f, state_i, next_work, segments, live_count,
-         steps) = shade_accumulate(tables, hits, state_f, state_i, next_work,
-                                   segments, steps, aparams, bparams, sp, acc)
-        pending.append(_host_copy(live_count))
+        lag = 1 if dev.type == "cpu" else LIVE_LAG
+        with spans.span("pool.loop"):
+            pending = collections.deque([_host_copy(live_count)])
+            while True:
+                if len(pending) >= lag:
+                    ev, live_host = pending.popleft()
+                    if ev is not None:
+                        _wait(ev)
+                    if int(live_host[0]) == 0:
+                        break
+                # Steps after the pool drains are no-ops: nothing is live,
+                # nothing spawns, nothing is added and the step count stays.
+                with spans.span("pool.launch"):
+                    hits = k1.closest_hit(state_f[:6], T_MIN, tables.scan)
+                    (state_f, state_i, next_work, segments, live_count,
+                     steps) = shade_accumulate(
+                        tables, hits, state_f, state_i, next_work, segments,
+                        steps, aparams, bparams, sp, acc)
+                pending.append(_host_copy(live_count))
 
-    order = ("beauty",) + aovs + (("reflection", "refraction") if want_spec
-                                  else ())
-    zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        with spans.span("pool.finish"):
+            order = ("beauty",) + aovs + (
+                ("reflection", "refraction") if want_spec else ())
+            zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
 
-    def get(name):
-        if name not in order:
-            return zeros3
-        c0 = 3 * order.index(name) * stride
-        return acc[c0:c0 + 3 * stride].reshape(3, stride)[:, :n].T.contiguous()
+            def get(name):
+                if name not in order:
+                    return zeros3
+                c0 = 3 * order.index(name) * stride
+                return acc[c0:c0 + 3 * stride].reshape(
+                    3, stride)[:, :n].T.contiguous()
 
-    out = SampleBuffers(*(get(f) for f in SampleBuffers._fields))
-    if with_stats:
-        ev, counts = _host_copy(torch.cat([segments, steps]))
-        if ev is not None:
-            _wait(ev)
-        return out, {"segments": int(counts[0]), "steps": int(counts[1])}
-    return out
+            out = SampleBuffers(*(get(f) for f in SampleBuffers._fields))
+            if with_stats:
+                ev, counts = _host_copy(torch.cat([segments, steps]))
+                if ev is not None:
+                    _wait(ev)
+                return out, {"segments": int(counts[0]),
+                             "steps": int(counts[1])}
+            return out

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import spans
+
 
 def _env_int(*names, default: int) -> int:
     for name in names:
@@ -190,14 +192,22 @@ def render_distributed(scene, cam, env, seed: int, config, device=None,
     from ..ops import integrator
     from . import render as prender
 
-    mesh, owners = make_global_mesh(local_devices(device, per_process))
-    n = config.n_pixels
-    ids = prender._padded_pixel_ids(n, len(mesh))
-    acc = prender.sharded_accumulate(scene, cam, env, seed, config, ids, 0,
-                                     mesh=mesh, windows=my_windows(owners))
-    # One gather of the six buffers, [rows, 6, 3].
-    full = all_gather(torch.stack(list(acc), dim=1))[:n]
-    out = integrator.finalize_buffers(
-        integrator.SampleBuffers(*full.unbind(1)), config)
-    host = torch.stack(list(out.values())).cpu().numpy()
-    return dict(zip(out, host))
+    with spans.span("dist.frame"):
+        with spans.span("dist.mesh"):
+            mesh, owners = make_global_mesh(local_devices(device,
+                                                          per_process))
+        n = config.n_pixels
+        ids = prender._padded_pixel_ids(n, len(mesh))
+        with spans.span("dist.render"):
+            acc = prender.sharded_accumulate(
+                scene, cam, env, seed, config, ids, 0, mesh=mesh,
+                windows=my_windows(owners))
+        with spans.span("dist.gather"):
+            # One gather of the six buffers, [rows, 6, 3].
+            full = all_gather(torch.stack(list(acc), dim=1))[:n]
+        with spans.span("dist.finalize"):
+            out = integrator.finalize_buffers(
+                integrator.SampleBuffers(*full.unbind(1)), config)
+        with spans.span("dist.copy"):
+            host = torch.stack(list(out.values())).cpu().numpy()
+        return dict(zip(out, host))

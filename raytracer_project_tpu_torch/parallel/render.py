@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import fused_step, integrator
+from ..utils import spans
 
 
 def make_mesh(n_devices: int | None = None, device=None) -> list:
@@ -65,10 +66,11 @@ def _indexed(dev) -> torch.device:
 
 
 def _in_window(fn, dev, stream, turns, grad: bool):
-    """fn() in a window's thread: on a CUDA device, with the device current,
-    `stream` the current stream (finished when fn returns) and the host
-    taken in turns with the other CUDA windows (`turns`)."""
-    with torch.set_grad_enabled(grad):
+    """fn() in a window's thread, as the span `window.render`: on a CUDA
+    device, with the device current, `stream` the current stream (finished
+    when fn returns) and the host taken in turns with the other CUDA windows
+    (`turns`)."""
+    with torch.set_grad_enabled(grad), spans.span("window.render"):
         if dev.type != "cuda":
             return fn()
         torch.cuda.set_device(dev)

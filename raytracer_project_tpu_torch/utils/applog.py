@@ -3,9 +3,9 @@ raytracer_project_tpu/utils/applog.py; the port keeps its own copy).
 
 The reference engine's AppLog (main.cpp:51-177):
 timestamped ring log with tag-based severity ([Error]/[Config]/[Render]/
-[System]/[Debug]), a frame-time ring with FPS, and two rays/s throughput
-metrics: rays_per_second() reproduces the reference's W·H·spp·max_depth/Δt
-upper-bound *estimator* (main.cpp:96-113); measured_rays_per_second() turns
+[System]/[Debug]) and two rays/s throughput metrics: rays_per_second()
+reproduces the reference's W·H·spp·max_depth/Δt upper-bound *estimator*
+(main.cpp:96-113); measured_rays_per_second() turns
 the pools' actual traced-segment counter (ops/wavefront.py
 stats) into a true throughput number.
 """
@@ -16,7 +16,6 @@ import collections
 import time
 
 RING_CAPACITY = 500       # main.cpp:58 (500-entry ring)
-FRAME_RING = 90           # main.cpp:53 (90-frame plot)
 
 SEVERITY_TAGS = ("[Error]", "[Config]", "[Render]", "[System]", "[Debug]")
 
@@ -27,8 +26,6 @@ class AppLog:
     def __init__(self, capacity: int = RING_CAPACITY, echo: bool = False):
         self.entries: collections.deque[str] = collections.deque(maxlen=capacity)
         self.echo = echo
-        self.frame_times: collections.deque[float] = collections.deque(maxlen=FRAME_RING)
-        self._last_frame: float | None = None
 
     def add_log(self, fmt: str, *args) -> str:
         msg = fmt % args if args else fmt
@@ -60,21 +57,6 @@ class AppLog:
             if tag in line:
                 return tag.strip("[]")
         return "Info"
-
-    # Frame-time metrics (main.cpp:80-93).
-
-    def tick_frame(self) -> None:
-        now = time.perf_counter()
-        if self._last_frame is not None:
-            self.frame_times.append(now - self._last_frame)
-        self._last_frame = now
-
-    @property
-    def fps(self) -> float:
-        if not self.frame_times:
-            return 0.0
-        avg = sum(self.frame_times) / len(self.frame_times)
-        return 1.0 / avg if avg > 0 else 0.0
 
 
 def rays_per_second(width: int, height: int, samples: int, max_depth: int,

@@ -45,7 +45,7 @@ from ..core import rng
 from ..models import camera as cam_mod
 from ..ops import integrator, post as post_mod
 from ..parallel import distributed, render as prender
-from . import applog, image_io
+from . import applog, image_io, spans
 
 PASS_BUFFERS = {
     post_mod.PASS_RGB: "beauty",
@@ -94,51 +94,54 @@ class RenderSession:
                  key=None, log: applog.AppLog | None = None,
                  mesh=None, owners=None, chunk_samples: int = 4,
                  device=None):
-        self._rank, world = distributed._world()
-        self._ranks = world if mesh is not None else 1
-        if mesh is not None:
-            if owners is None:
-                if self._ranks > 1:
-                    raise ValueError(
-                        f"a mesh under {self._ranks} ranks needs its owners "
-                        "(distributed.make_global_mesh)")
-                owners = [self._rank] * len(mesh)
-            if len(owners) != len(mesh):
-                raise ValueError(f"{len(owners)} owners for a mesh of "
-                                 f"{len(mesh)} entries")
-            self._windows = distributed.my_windows(owners)
-        self.device = (torch.device(mesh[self._windows[0]]) if mesh is not None
-                       else integrator.resolve_device(device))
-        self.scene = scene.to(self.device)
-        self.camera = camera.to(self.device)
-        self.env = env.to(self.device)
-        self.config = config
-        self.post_params = (post_params
-                            or post_mod.make_post_params()).to(self.device)
-        self.post_config = post_config or post_mod.PostConfig()
-        self.key = as_key(key)
-        self.log = log or applog.AppLog()
-        self.mesh = mesh
-        self.chunk_samples = chunk_samples
-        self._denoiser = None
+        with spans.span("session.create"):
+            self._rank, world = distributed._world()
+            self._ranks = world if mesh is not None else 1
+            if mesh is not None:
+                if owners is None:
+                    if self._ranks > 1:
+                        raise ValueError(
+                            f"a mesh under {self._ranks} ranks needs its "
+                            "owners (distributed.make_global_mesh)")
+                    owners = [self._rank] * len(mesh)
+                if len(owners) != len(mesh):
+                    raise ValueError(f"{len(owners)} owners for a mesh of "
+                                     f"{len(mesh)} entries")
+                self._windows = distributed.my_windows(owners)
+            self.device = (torch.device(mesh[self._windows[0]])
+                           if mesh is not None
+                           else integrator.resolve_device(device))
+            self.scene = scene.to(self.device)
+            self.camera = camera.to(self.device)
+            self.env = env.to(self.device)
+            self.config = config
+            self.post_params = (post_params
+                                or post_mod.make_post_params()).to(self.device)
+            self.post_config = post_config or post_mod.PostConfig()
+            self.key = as_key(key)
+            self.log = log or applog.AppLog()
+            self.mesh = mesh
+            self.chunk_samples = chunk_samples
+            self._denoiser = None
 
-        n = config.n_pixels
-        if mesh is None:
-            self._ids = None
-            self._n_pad = self._n_local = n
-            self._start = 0
-        else:
-            self._ids = prender._padded_pixel_ids(n, len(mesh))
-            self._n_pad = int(self._ids.shape[0])
-            # Rows this process holds: its windows, from window _windows[0].
-            per = self._n_pad // len(mesh)
-            self._n_local = per * len(self._windows)
-            self._start = per * self._windows[0]
-        self.cancel_requested = False
-        self._start_time: float | None = None
-        self.reset()
-        self.log.render("-Zenith-TPU engine session created (%dx%d)",
-                        config.width, config.height)
+            n = config.n_pixels
+            if mesh is None:
+                self._ids = None
+                self._n_pad = self._n_local = n
+                self._start = 0
+            else:
+                self._ids = prender._padded_pixel_ids(n, len(mesh))
+                self._n_pad = int(self._ids.shape[0])
+                # Rows this process holds: its windows, from window
+                # _windows[0].
+                per = self._n_pad // len(mesh)
+                self._n_local = per * len(self._windows)
+                self._start = per * self._windows[0]
+            self.cancel_requested = False
+            self._start_time: float | None = None
+            self.reset()
+            self.log.render("-Zenith-TPU engine session created (%dx%d)",
+                            config.width, config.height)
 
     # -- accumulation -------------------------------------------------------
 
@@ -168,29 +171,33 @@ class RenderSession:
     def step(self, n_samples: int | None = None) -> int:
         """Accumulate one chunk of samples; returns samples done so far."""
         n_samples = n_samples or self.chunk_samples
-        cfg = dataclasses.replace(self.config, samples_per_pixel=n_samples)
-        if self._start_time is None:
-            self._start_time = time.perf_counter()
-        t0 = time.perf_counter()
-        delta, stats = self._accumulate(cfg)
-        self.acc = integrator.SampleBuffers(*(
-            a + b for a, b in zip(self.acc, delta)))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
-        self.samples_done += n_samples
-        self.log.tick_frame()
-        bound = applog.rays_per_second(self.config.width, self.config.height,
-                                       n_samples, self.config.max_depth, dt)
-        if stats.get("segments", 0) > 0:
-            self.segments_traced += float(stats["segments"])
-            measured = applog.measured_rays_per_second(stats["segments"], dt)
-            self.log.debug(
-                "chunk %d samples in %.2fs (%.1f Mrays/s measured, "
-                "%.1f bound)", n_samples, dt, measured / 1e6, bound / 1e6)
-        else:
-            self.log.debug("chunk %d samples in %.2fs (%.1f Mrays/s bound)",
-                           n_samples, dt, bound / 1e6)
+        with spans.span("session.step"):
+            cfg = dataclasses.replace(self.config,
+                                      samples_per_pixel=n_samples)
+            if self._start_time is None:
+                self._start_time = time.perf_counter()
+            t0 = time.perf_counter()
+            delta, stats = self._accumulate(cfg)
+            self.acc = integrator.SampleBuffers(*(
+                a + b for a, b in zip(self.acc, delta)))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0
+            self.samples_done += n_samples
+            bound = applog.rays_per_second(
+                self.config.width, self.config.height, n_samples,
+                self.config.max_depth, dt)
+            if stats.get("segments", 0) > 0:
+                self.segments_traced += float(stats["segments"])
+                measured = applog.measured_rays_per_second(
+                    stats["segments"], dt)
+                self.log.debug(
+                    "chunk %d samples in %.2fs (%.1f Mrays/s measured, "
+                    "%.1f bound)", n_samples, dt, measured / 1e6, bound / 1e6)
+            else:
+                self.log.debug(
+                    "chunk %d samples in %.2fs (%.1f Mrays/s bound)",
+                    n_samples, dt, bound / 1e6)
         return self.samples_done
 
     def render_progressive(self, total_samples: int,
@@ -238,9 +245,10 @@ class RenderSession:
 
     def buffers(self) -> dict:
         """Averaged linear buffers [H, W, 3] on the session's device."""
-        return integrator.finalize_buffers(
-            self._acc_frame(), self.config,
-            total_samples=max(self.samples_done, 1))
+        with spans.span("session.buffers"):
+            return integrator.finalize_buffers(
+                self._acc_frame(), self.config,
+                total_samples=max(self.samples_done, 1))
 
     def statistics(self) -> post_mod.ImageStatistics:
         """Image statistics of the averaged beauty. Under several ranks each

@@ -1,6 +1,7 @@
 """The port's command line (cli.py) and its small utilities on the CPU:
 `render --device cpu` writes its passes and checkpoint, `--resume` restores
-it, the default device raises without a card, `info` names no JAX,
+it, `--profile`'s trace carries the port's spans (window threads' too),
+the default device raises without a card, `info` names no JAX,
 `--check-numerics` is clean on the tiny showcase and the NaN trap
 (utils/debug.py) raises and names the op, and applog and histview give the
 reference's strings."""
@@ -55,6 +56,36 @@ def test_render_writes_passes_and_resume_restores(tmp_path, capsys):
     assert "Restored 4 samples" in err.out
     np.testing.assert_array_equal(
         image_io.read_png(str(out2 / "render_rgb.png")), first["rgb"])
+
+
+def _profiled_names(tmp_path, *extra) -> list:
+    """Names of the events in `render --profile`'s trace.json of a 16x9
+    render of 2 spp in chunks of 1."""
+    argv = ["render", "--device", "cpu", "--width", "16", "--height", "9",
+            "--spp", "2", "--chunk", "1", "--max-depth", "3", "--quiet",
+            "--passes", "rgb", "--out", str(tmp_path / "out"),
+            "--profile", str(tmp_path / "prof"), *extra]
+    assert cli.main(argv) == 0
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    return [e.get("name") for e in trace["traceEvents"]]
+
+
+def test_profile_trace_carries_the_spans(tmp_path):
+    """`--profile DIR`: DIR/trace.json holds the session's and the pool's
+    spans as host events."""
+    names = _profiled_names(tmp_path)
+    assert names.count("session.step") == 2
+    assert names.count("pool.call") == 2
+    assert names.count("window.render") == 0
+
+
+def test_profile_trace_carries_the_window_threads_spans(tmp_path):
+    """Under `--devices 2` each chunk renders two windows, each in a thread
+    of its own: the trace holds every thread's `window.render` and pool."""
+    names = _profiled_names(tmp_path, "--devices", "2")
+    assert names.count("session.step") == 2
+    assert names.count("window.render") == 4
+    assert names.count("pool.call") == 4
 
 
 def test_bench_flags_win_over_the_environment_for_one_run(monkeypatch):
