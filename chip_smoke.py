@@ -19,7 +19,10 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                designs timed; K3 fused timed beside its yardstick (K2, the
                unfused K3 and the index_add_ they fed) with its recounted
                byte bound; the index_add_ it retired timed with its idle
-               lanes on the dummy slot, dropped, and spread;
+               lanes on the dummy slot, dropped, and spread; the pool's
+               start in one launch (start_kernel) against the plain torch
+               fill, bit for bit, at the main path's 131,072 lanes and the
+               preview's 90,000, timed with its byte bound;
   3. smoke     render the 64x36 @ 2 spp showcase (seed 0) through the
                smoke module's render_fused_fast and hold it to the smoke
                gate's two goldens (the device golden at mean |d| <= 1e-5,
@@ -226,10 +229,10 @@ EPILOGUE_OPS = (15, 12, 35)
 # disagreed on the funnel's overlapping spheres was 0.0063.
 NEAR_ORIGIN = 0.02
 # Kernels each path launches (the counters of _counters()): on the fused
-# pool K1 and K3 fused (shade_advance: its beauty variant,
-# shade_advance_features the others).
-FUSED_KERNELS = ("closest_hit", "shade_advance")
-FEATURES_KERNELS = ("closest_hit", "shade_advance_features")
+# pool the start kernel, K1 and K3 fused (shade_advance: its beauty
+# variant, shade_advance_features the others).
+FUSED_KERNELS = ("start_kernel", "closest_hit", "shade_advance")
+FEATURES_KERNELS = ("start_kernel", "closest_hit", "shade_advance_features")
 CHUNKED_KERNELS = ("closest_hit_feats",)
 # K2 and the unfused K3: K3 fused's yardstick (and P3's d3), and the
 # yardsticks of P2/P4 and P3: never launched on a render path.
@@ -929,6 +932,67 @@ def phase_kernels(results: dict):
     return ray_sets
 
 
+def phase_start(results: dict) -> None:
+    """The pool's start in one launch (start_kernel, fused_step's
+    initial_state) against the plain torch fill on the same card tensors,
+    bit for bit: at the main path's pool (800x450 @ 32 spp, 131,072 lanes)
+    and the preview's (400x225 @ 1 spp, 90,000 lanes, not a multiple of
+    the 256-lane block). Both timed, with the byte bound of the state rows
+    and counters the kernel writes; its launches are read on the main path
+    (phase_full)."""
+    import torch
+
+    from raytracer_project_tpu_torch.core import rng
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.ops import fused_step as fs
+
+    dev = torch.device("cuda")
+    env = tenv.make_environment(**ENV_KW)
+    out = {}
+    for label, (w, h, spp) in (("main", (800, 450, 32)),
+                               ("preview", (400, 225, 1))):
+        cam = tcam.make_camera(image_width=w, image_height=h,
+                               **CAM_KW).to(dev)
+        n = w * h
+        p = fs.pool_size(_cfg(w, h, spp), n * spp)
+        sp = fs.StepParams(
+            seed=rng.seed_from_int(1), sample_offset=0, n_pixels=n, width=w,
+            total_work=n * spp, max_depth=10, env_mode=tenv.PHYSICAL_SUN,
+            n_beauty=n * spp)
+        bparams = fs._bparams(cam, env, dev)
+        got = fs.initial_state(cam, bparams, sp, p)
+        want = fs.initial_state_plain(cam, sp, p, dev)
+        check(all(a.shape == b.shape and a.dtype == b.dtype
+                  for a, b in zip(got, want)),
+              f"start_kernel {label}: shapes or dtypes differ")
+        bad = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                  if a.dtype == torch.float32 else int((a != b).sum())
+                  for a, b in zip(got, want))
+        check(bad == 0, f"start_kernel {label}: {bad} values differ in bits")
+        err = float((got[0] - want[0]).abs().max())
+        nbytes = sum(t.numel() * t.element_size() for t in got)
+        ms = time_ms(f"start_kernel {label}",
+                     lambda: fs.initial_state(cam, bparams, sp, p))
+        plain_ms = time_ms(f"start_kernel {label} plain",
+                           lambda: fs.initial_state_plain(cam, sp, p, dev))
+        bound, by = bound_ms(nbytes)
+        out[label] = dict(lanes=p, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by, bytes=nbytes)
+        log(f"  start_kernel {label}: {p} lanes bit for bit against the "
+            f"plain fill; {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({nbytes} B written)")
+    main, preview = out["main"], out["preview"]
+    results["start_kernel"] = dict(
+        name="start_kernel", route="cuda",
+        source="raytracer_project_tpu_torch/csrc/shade_advance.cu",
+        replaces="raytracer_project_tpu/ops/fused_step.py:1283",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by")},
+        library_ms=None, lanes=main["lanes"], bytes=main["bytes"],
+        **{f"preview_{k}": v for k, v in preview.items()})
+
+
 def phase_k4(results: dict) -> None:
     """K4 on the chunked path's shapes: the 360,000 camera rays of the
     800x450 showcase and one scatter of them, made on the card by the
@@ -1018,7 +1082,8 @@ def _counters():
     from raytracer_project_tpu_torch.tools import probe_decode as pd
     from raytracer_project_tpu_torch.tools import probe_onehot as po
 
-    return {"closest_hit": (k1.closest_hit, "launches"),
+    return {"start_kernel": (fs.initial_state, "launches"),
+            "closest_hit": (k1.closest_hit, "launches"),
             "decode": (fs.decode, "launches"),
             "shade_advance": (fs.shade_accumulate, "launches"),
             "shade_advance_features": (fs.shade_accumulate,
@@ -4315,6 +4380,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     results: dict = {}
     ray_sets = phase_kernels(results)
+    phase_start(results)
     phase_k4(results)
     phase_smoke(results)
     phase_smoke_module(results)

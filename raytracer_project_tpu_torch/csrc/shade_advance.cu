@@ -68,6 +68,9 @@
 //                   the segment count (int64) and the live count, and
 //                   for K3 fused adds 1 to the step count (int64, in
 //                   place) when the step began with live lanes.
+// A pool render starts with start_kernel, one launch: the respawn with
+// every lane free and next_work 0 (both call spawn_lane), which also
+// writes the counters.
 //
 // Bound on the H100: bytes. The unfused beauty variant reads 24 record
 // rows, 16 state rows and up to 6 texel words and writes 16 state rows, 3
@@ -614,6 +617,50 @@ __device__ long long block_sum(long long v, long long* red) {
   return s;
 }
 
+// Lane i takes work id w (< total_work): the (pixel, sample) that w names,
+// its camera ray and a fresh path (throughput 1, radiance 0, bounce 0),
+// `live` its live flag. Shared by the respawn and the pool's start.
+template <bool SPEC>
+__device__ __forceinline__ void spawn_lane(
+    int i, int p, long long w, int live, const float* __restrict__ bp,
+    uint32_t seed, int sample_offset, int pixel_offset, int n_pixels,
+    float inv_n, int width, float inv_w, int n_beauty,
+    float* __restrict__ out_f, int* __restrict__ out_i) {
+  // Work ids from n_beauty on are the spec lanes of the same samples.
+  bool new_spec = SPEC && w >= n_beauty;
+  if (new_spec) w -= n_beauty;
+
+  // Work id -> (pixel, sample), in f32 as the reference decodes it (exact
+  // below 2^24).
+  float wf = (float)w;
+  float n = (float)n_pixels;
+  float sr = floorf((wf + 0.5f) * inv_n);
+  float sli = wf - sr * n;
+  sr = sli < 0.0f ? sr - 1.0f : (sli >= n ? sr + 1.0f : sr);
+  sli = wf - sr * n;
+  // The window's slot -> the global pixel id (RNG streams and raygen).
+  int new_li = (int)sli + pixel_offset;
+  int new_samp = sample_offset + (int)sr;
+  V3 o, d;
+  raygen(bp, seed, new_li, new_samp, width, inv_w, o, d);
+  const float vals[12] = {o.x, o.y, o.z, d.x, d.y, d.z,
+                          1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 12; ++k) out_f[k * p + i] = vals[k];
+  out_i[i] = live;
+  out_i[p + i] = 0;
+  out_i[2 * p + i] = new_samp;
+  out_i[3 * p + i] = new_li;
+  if (SPEC) {
+    out_f[12 * p + i] = 1.0f;
+    out_f[13 * p + i] = 1.0f;
+    out_f[14 * p + i] = 1.0f;
+    out_i[4 * p + i] = new_spec ? 1 : 0;
+    out_i[5 * p + i] = 0;
+    out_i[6 * p + i] = 0;
+  }
+}
+
 template <bool SPEC>
 __global__ void respawn_kernel(
     int p, const float* __restrict__ bp, uint32_t seed, int sample_offset,
@@ -669,39 +716,63 @@ __global__ void respawn_kernel(
   if (!free_lane) return;
   long long new_w = next_work + before + rank - 1;
   if (new_w >= total_work) return;
-  // Work ids from n_beauty on are the spec lanes of the same samples.
-  bool new_spec = SPEC && new_w >= n_beauty;
-  if (new_spec) new_w -= n_beauty;
+  spawn_lane<SPEC>(i, p, new_w, 1, bp, seed, sample_offset, pixel_offset,
+                   n_pixels, inv_n, width, inv_w, n_beauty, out_f, out_i);
+}
 
-  // Work id -> (pixel, sample), in f32 as the reference decodes it (exact
-  // below 2^24).
-  float wf = (float)new_w;
-  float n = (float)n_pixels;
-  float sr = floorf((wf + 0.5f) * inv_n);
-  float sli = wf - sr * n;
-  sr = sli < 0.0f ? sr - 1.0f : (sli >= n ? sr + 1.0f : sr);
-  sli = wf - sr * n;
-  // The window's slot -> the global pixel id (RNG streams and raygen).
-  int new_li = (int)sli + pixel_offset;
-  int new_samp = sample_offset + (int)sr;
-  V3 o, d;
-  raygen(bp, seed, new_li, new_samp, width, inv_w, o, d);
-  const float vals[12] = {o.x, o.y, o.z, d.x, d.y, d.z,
-                          1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int k = 0; k < 12; ++k) out_f[k * p + i] = vals[k];
-  out_i[i] = 1;
-  out_i[p + i] = 0;
-  out_i[2 * p + i] = new_samp;
-  out_i[3 * p + i] = new_li;
-  if (SPEC) {
-    out_f[12 * p + i] = 1.0f;
-    out_f[13 * p + i] = 1.0f;
-    out_f[14 * p + i] = 1.0f;
-    out_i[4 * p + i] = new_spec ? 1 : 0;
-    out_i[5 * p + i] = 0;
-    out_i[6 * p + i] = 0;
+// --- the pool's start ---------------------------------------------------------
+
+// The initial fill of a pool render: lane i takes work id i, as
+// respawn_kernel would with every lane free and next_work 0 (a lane past
+// total_work, which pool_size never makes, gets the last id and live 0).
+// Block 0 writes the counters: next_work and the live count min(p,
+// total_work), segments and steps 0.
+template <bool SPEC>
+__global__ void start_kernel(
+    int p, const float* __restrict__ bp, uint32_t seed, int sample_offset,
+    int pixel_offset, int n_pixels, float inv_n, int width, float inv_w,
+    int total_work, int n_beauty, float* __restrict__ out_f,
+    int* __restrict__ out_i, int* __restrict__ next_work,
+    int* __restrict__ live_count, long long* __restrict__ segments,
+    long long* __restrict__ steps) {
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i == 0) {
+    int started = p < total_work ? p : total_work;
+    next_work[0] = started;
+    live_count[0] = started;
+    segments[0] = 0;
+    steps[0] = 0;
   }
+  if (i >= p) return;
+  long long w = i < total_work ? i : total_work - 1;
+  spawn_lane<SPEC>(i, p, w, i < total_work ? 1 : 0, bp, seed, sample_offset,
+                   pixel_offset, n_pixels, inv_n, width, inv_w, n_beauty,
+                   out_f, out_i);
+}
+
+extern "C" int pool_start_launch(
+    int p, const void* bparams, unsigned int seed, int sample_offset,
+    int pixel_offset, int n_pixels, float inv_n, int width, float inv_w,
+    int total_work, int n_beauty, int want_spec, void* state_f,
+    void* state_i, void* next_work, void* live_count, void* segments,
+    void* steps, void* stream) {
+  int grid = (p + BLOCK - 1) / BLOCK;
+  if (grid == 0 || total_work <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (want_spec) {
+    start_kernel<true><<<grid, BLOCK, 0, s>>>(
+        p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
+        inv_n, width, inv_w, total_work, n_beauty, (float*)state_f,
+        (int*)state_i, (int*)next_work, (int*)live_count,
+        (long long*)segments, (long long*)steps);
+  } else {
+    start_kernel<false><<<grid, BLOCK, 0, s>>>(
+        p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
+        inv_n, width, inv_w, total_work, n_beauty, (float*)state_f,
+        (int*)state_i, (int*)next_work, (int*)live_count,
+        (long long*)segments, (long long*)steps);
+  }
+  return (int)cudaGetLastError();
 }
 
 #define SHADE_ARGS                                                             \

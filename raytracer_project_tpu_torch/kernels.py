@@ -62,6 +62,9 @@ SIGNATURES = {
                                    _F, _I, _I, _I, _I, _I]
                                 + [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
                                    _F, _F, _I, _F, _F, _I] + [_P] * 11),
+    "pool_start_launch": ("shade_advance",
+                          [_I, _P, _U, _I, _I, _I, _F, _I, _F, _I, _I, _I]
+                          + [_P] * 7),
     "probe_a1_ablate": ("probe_a1_ablate", [_I, _P, _I, _F] + [_P, _P, _I] * 3
                         + [_I, _P, _P, _P, _P]),
     "probe_a1_ablate_dense": ("probe_a1_ablate", [_I, _P, _I, _F]

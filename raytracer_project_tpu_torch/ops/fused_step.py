@@ -32,6 +32,11 @@ XLA ops between its kernels are direct loads inside K3 here.
 Every kernel has a plain PyTorch version in this module; a wrapper takes
 it for CPU tensors and launches the CUDA kernel (or raises) for CUDA
 tensors.
+
+A pool call's set-up is small and fixed: the scene's tables and the
+environment's and camera's parameter vectors are built once per distinct
+input and reused by later calls (`DerivedCache`), and the lanes start in
+one launch (`initial_state`).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..core.constants import (
     PI, RAY_EPSILON, RR_P_MAX, RR_P_MIN, RR_START_BOUNCE, T_MAX, T_MIN,
     WEAK_RAY_EPS, Z_DEPTH_MAX_DIST,
 )
+from ..core.tree import tree_map
 from ..models import camera as camera_mod
 from ..models import environment as env_mod
 from ..models import materials as mat_mod
@@ -1008,6 +1014,150 @@ def pool_size(config, total_work: int) -> int:
     return min(p, total_work)
 
 
+def initial_state_plain(cam, sp: StepParams, p: int, device):
+    """Plain PyTorch start of a pool render of p lanes: lane w takes work
+    id w, with the same (pixel, sample) decode as the respawn, its camera
+    ray (camera.generate_rays_soa) and a fresh path. Returns (state_f,
+    state_i, next_work, live_count, segments, steps)."""
+    n, total_work, n_beauty = sp.n_pixels, sp.total_work, sp.n_beauty
+    w0 = torch.arange(p, dtype=torch.int64, device=device)
+    wc = torch.clamp(w0, max=total_work - 1)
+    spec0 = wc >= n_beauty
+    wc = torch.where(spec0, wc - n_beauty, wc)
+    samp_rel = wc // n
+    li0 = (wc - samp_rel * n + sp.pixel_offset).to(torch.int32)
+    samp0 = (sp.sample_offset + samp_rel).to(torch.int32)
+    lr0 = rng.LaneRng(sp.seed, rng.u32(li0), rng.u32(samp0), 0)
+    o0, d0 = camera_mod.generate_rays_soa(cam.to(device), lr0, li0, sp.width)
+    live0 = (w0 < total_work).to(torch.int32)
+    ones = torch.ones((p,), dtype=torch.float32, device=device)
+    zeros = torch.zeros((p,), dtype=torch.float32, device=device)
+    zeros_i = torch.zeros_like(live0)
+    rows_f = [*o0, *d0, ones, ones, ones, zeros, zeros, zeros]
+    rows_i = [live0, zeros_i, samp0, li0]
+    if sp.want_spec:
+        rows_f += [ones, ones, ones]
+        rows_i += [spec0.to(torch.int32), zeros_i, zeros_i]
+    return (torch.stack(rows_f), torch.stack(rows_i),
+            torch.full((1,), min(p, total_work), dtype=torch.int32,
+                       device=device),
+            live0.sum().to(torch.int32).reshape(1),
+            torch.zeros((1,), dtype=torch.int64, device=device),
+            torch.zeros((1,), dtype=torch.int64, device=device))
+
+
+def initial_state(cam, bparams, sp: StepParams, p: int):
+    """The start of a pool render of p lanes on bparams' device, as
+    `initial_state_plain` (which CPU tensors take) makes it. CUDA tensors
+    launch csrc/shade_advance.cu's start_kernel, one launch that writes the
+    state and the counters, its rays made from bparams (the camera's
+    values). `launches` counts them."""
+    dev = bparams.device
+    if dev.type == "cpu":
+        return initial_state_plain(cam, sp, p, dev)
+    kernels.require_cuda(bparams, dtype=torch.float32)
+    nf, ni = state_rows(sp)
+    out = (torch.empty((nf, p), dtype=torch.float32, device=dev),
+           torch.empty((ni, p), dtype=torch.int32, device=dev),
+           torch.empty((1,), dtype=torch.int32, device=dev),
+           torch.empty((1,), dtype=torch.int32, device=dev),
+           torch.empty((1,), dtype=torch.int64, device=dev),
+           torch.empty((1,), dtype=torch.int64, device=dev))
+    kernels.launch(
+        "pool_start_launch", p, bparams, sp.seed, sp.sample_offset,
+        sp.pixel_offset, sp.n_pixels, float(np.float32(1.0 / sp.n_pixels)),
+        sp.width, float(np.float32(1.0 / sp.width)), sp.total_work,
+        sp.n_beauty, int(sp.want_spec), *out)
+    kernels.count(initial_state)
+    return out
+
+
+initial_state.launches = 0
+
+
+def _key(obj, refs: list):
+    """What values derived from `obj` (nested tuples of tensors, ints and
+    None) are read from: for a tensor its identity, storage and version (an
+    in-place edit bumps the version; an edit that bypasses torch, through a
+    numpy view or `.data`, is not seen), any other leaf itself. Tensors are
+    appended to refs, which the key's holder keeps, so that no id is reused
+    while the key is held."""
+    if isinstance(obj, torch.Tensor):
+        refs.append(obj)
+        return (id(obj), obj.data_ptr(), obj._version)
+    if isinstance(obj, tuple):
+        return tuple(_key(x, refs) for x in obj)
+    return obj
+
+
+class _Entry(NamedTuple):
+    key: tuple
+    refs: list       # the key's tensors, held
+    value: object
+    stream: object   # on the card: the stream the value was made on,
+    event: object    # and an event after its build there
+
+
+class DerivedCache:
+    """A value that a pool call derives from its inputs (the scene's
+    tables, the camera's and the environment's parameters), kept for the
+    next call over the same inputs: one entry per device, the latest,
+    reused while the inputs' `_key` is the same. New sessions and
+    re-placed scenes over the same tensors hit; a new or edited tensor, a
+    new mode or another device builds. One build at a time on a device:
+    window threads of one card wait for it and reuse it, while the threads
+    of other cards build their own at once. `built` and `reused` count the
+    calls.
+
+    On the card the value is made on the building thread's current stream;
+    a call on another stream waits there for the build (an event) and
+    records the value's tensors on its stream for the allocator."""
+
+    def __init__(self):
+        self._locks_lock = threading.Lock()
+        self._locks = {}
+        self._latest = {}
+        self.built = 0
+        self.reused = 0
+
+    def _lock(self, device) -> threading.Lock:
+        with self._locks_lock:
+            return self._locks.setdefault(device, threading.Lock())
+
+    def get(self, device, inputs, build):
+        """The value of `inputs` on `device`: the kept one, or build()."""
+        refs = []
+        key = _key(inputs, refs)
+        with self._lock(device):
+            entry = self._latest.get(device)
+            if entry is not None and entry.key == key:
+                kernels.count(self, "reused")
+                if entry.stream is not None:
+                    cur = torch.cuda.current_stream(device)
+                    if cur != entry.stream:
+                        cur.wait_event(entry.event)
+                        tree_map(lambda t: t.record_stream(cur), entry.value)
+                return entry.value
+            value = build()
+            kernels.count(self, "built")
+            stream = event = None
+            if device.type == "cuda":
+                stream = torch.cuda.current_stream(device)
+                event = torch.cuda.Event()
+                event.record(stream)
+            self._latest[device] = _Entry(key, refs, value, stream, event)
+            return value
+
+
+tables_cache = DerivedCache()   # FusedTables, per (scene, env_mode, HDR env)
+params_cache = DerivedCache()   # (_aparams, _bparams), per (camera, env)
+
+
+def _build_tables_traced(scene, env, env_mode: int) -> FusedTables:
+    with spans.span("tables.build"):
+        return build_tables(scene, env, env_mode)
+
+
 _turns = threading.local()
 
 
@@ -1101,10 +1251,14 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
         total_work = n_beauty * (2 if want_spec else 1)
         p = pool_size(config, total_work)
         with spans.span("pool.setup"):
-            with spans.span("tables.build"):
-                tables = build_tables(scene, env, config.env_mode)
-            aparams = _aparams(env, dev)
-            bparams = _bparams(cam, env, dev)
+            # build_tables reads the environment in HDR_MAP mode only.
+            hdr_env = env if config.env_mode == env_mod.HDR_MAP else None
+            tables = tables_cache.get(
+                dev, (scene, hdr_env, config.env_mode),
+                lambda: _build_tables_traced(scene, env, config.env_mode))
+            aparams, bparams = params_cache.get(
+                dev, (cam, env),
+                lambda: (_aparams(env, dev), _bparams(cam, env, dev)))
             n_volumes = (scene.volumes.count if scene.volumes is not None
                          else 0)
             sp = StepParams(
@@ -1115,34 +1269,8 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
                 aovs=aovs, use_reflection=config.use_reflection,
                 use_refraction=config.use_refraction, n_beauty=n_beauty,
                 n_volumes=n_volumes, pixel_offset=int(pixel_offset))
-
-            # Initial fill: the same (pixel, sample) decode as the respawn.
-            w0 = torch.arange(p, dtype=torch.int64, device=dev)
-            wc = torch.clamp(w0, max=total_work - 1)
-            spec0 = wc >= n_beauty
-            wc = torch.where(spec0, wc - n_beauty, wc)
-            samp_rel = wc // n
-            li0 = (wc - samp_rel * n + pixel_offset).to(torch.int32)
-            samp0 = (sample_offset + samp_rel).to(torch.int32)
-            lr0 = rng.LaneRng(sp.seed, rng.u32(li0), rng.u32(samp0), 0)
-            o0, d0 = camera_mod.generate_rays_soa(cam.to(dev), lr0, li0,
-                                                  config.width)
-            live0 = (w0 < total_work).to(torch.int32)
-            ones = torch.ones((p,), dtype=torch.float32, device=dev)
-            zeros = torch.zeros((p,), dtype=torch.float32, device=dev)
-            zeros_i = torch.zeros_like(live0)
-            rows_f = [*o0, *d0, ones, ones, ones, zeros, zeros, zeros]
-            rows_i = [live0, zeros_i, samp0, li0]
-            if want_spec:
-                rows_f += [ones, ones, ones]
-                rows_i += [spec0.to(torch.int32), zeros_i, zeros_i]
-            state_f = torch.stack(rows_f)
-            state_i = torch.stack(rows_i)
-            next_work = torch.full((1,), min(p, total_work),
-                                   dtype=torch.int32, device=dev)
-            live_count = live0.sum().to(torch.int32).reshape(1)
-            segments = torch.zeros((1,), dtype=torch.int64, device=dev)
-            steps = torch.zeros((1,), dtype=torch.int64, device=dev)
+            (state_f, state_i, next_work, live_count, segments,
+             steps) = initial_state(cam, bparams, sp, p)
 
             # One flat accumulator, channel c at [c * stride, c * stride + n);
             # K3 fused adds each lane's finished values to it.

@@ -1278,3 +1278,81 @@ def test_launch_on_another_current_device_raises(cuda, monkeypatch):
     assert not thread.is_alive()
     assert errors and "current device is cuda:1" in errors[0], errors
     assert k1.closest_hit.launches == 0
+
+
+# The pool's start in one launch: (pixels, spp, lanes, split passes on,
+# pixel offset, sample offset). 90,000, 120,000, 100,000 and 1,000 lanes
+# are not multiples of the 256-lane block; the spec case and the window
+# start spec lanes.
+START_CASES = {
+    "turntable": (800 * 450, 4, 131_072, False, 0, 0),
+    "preview": (400 * 225, 1, 90_000, False, 0, 7),
+    "spec": (30_000, 2, 120_000, True, 0, 3),
+    "window": (50_000, 1, 100_000, True, 123_457, 5),
+    "small": (1_000, 3, 1_000, False, 2_000, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(START_CASES))
+def test_pool_start_kernel_equals_the_torch_fill(cuda, case):
+    """start_kernel writes the state rows and the counters (next_work, the
+    live count, segments, steps) that the plain fill makes with torch ops
+    on the card, bit for bit, in one launch."""
+    n, spp, p, spec, poff, soff = START_CASES[case]
+    cam = tcam.make_camera(image_width=800, image_height=450,
+                           defocus_angle=0.6, **CAM_KW).to(cuda)
+    env = tenv.make_environment(**ENV_KW).to(cuda)
+    n_beauty = n * spp
+    sp = fs.StepParams(
+        seed=rng.seed_from_int(2**31 + 17), sample_offset=soff, n_pixels=n,
+        width=800, total_work=n_beauty * (2 if spec else 1), max_depth=10,
+        env_mode=tenv.PHYSICAL_SUN, use_reflection=spec, use_refraction=spec,
+        n_beauty=n_beauty, pixel_offset=poff)
+    launches = fs.initial_state.launches
+    got = fs.initial_state(cam, fs._bparams(cam, env, cuda), sp, p)
+    assert fs.initial_state.launches == launches + 1
+    want = fs.initial_state_plain(cam, sp, p, cuda)
+    assert got[0].shape == (15 if spec else 12, p)
+    if spec:
+        assert 0 < int(want[1][4].sum()) < p
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert torch.equal(_bits(a), _bits(b)), k
+
+
+@pytest.mark.cuda
+def test_pool_setup_on_a_hit_reads_nothing_back(cuda):
+    """A second pool call over the same scene, environment and camera
+    reuses the tables and both parameter vectors: its `pool.setup` holds no
+    `tables.build`, no read-back or copy, and at most ten torch ops, where
+    the first call's build reads back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, cam, env, cfg = _window_frame(cuda, 64, 36, 2)
+    cam, env = cam.to(cuda), env.to(cuda)
+    caches = (fs.tables_cache, fs.params_cache)
+    setups = []
+    for seed in (0, 1):
+        built = [c.built for c in caches]
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fs.render_pool_fused(scene, cam, env, seed, cfg, 1)
+        setup, = [e for e in prof.events() if e.name == "pool.setup"]
+        setups.append(_subtree(setup))
+        assert [c.built - b for c, b in zip(caches, built)] == [1 - seed] * 2
+    reads = ("aten::_local_scalar_dense", "aten::item", "aten::copy_",
+             "aten::_to_copy")
+    assert [e for e in setups[0] if e.name in reads]
+    assert "tables.build" in [e.name for e in setups[0]]
+    hit = setups[1]
+    assert not [e.name for e in hit if e.name in reads or e.name.startswith(
+        "tables.")]
+    assert len([e for e in hit if e.name.startswith("aten::")
+                and not (e.cpu_parent or e).name.startswith("aten::")]) <= 10
+
+
+def _subtree(event) -> list:
+    out = []
+    for child in event.cpu_children:
+        out += [child, *_subtree(child)]
+    return out

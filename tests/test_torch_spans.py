@@ -98,8 +98,9 @@ def test_off_returns_one_object_and_reads_no_clock(monkeypatch):
 
 def test_a_session_update_nests_the_pool_spans(monkeypatch):
     """One fused chunk of one sample each: a step of 2 samples holds two
-    pool.call spans, each with one setup (one tables.build), one loop of
-    one launch a step (the CPU waits on every step) and one finish."""
+    pool.call spans, each with one setup, one loop of one launch a step
+    (the CPU waits on every step) and one finish; the first setup builds
+    the scene's tables (one tables.build), the second reuses them."""
     monkeypatch.setattr(fused_step, "fused_spp_chunk", lambda *a, **k: 1)
     returned = []
     inner = fused_step.render_pool_fused
@@ -119,13 +120,13 @@ def test_a_session_update_nests_the_pool_spans(monkeypatch):
     calls = _children(events, step)
     assert [e["name"] for e in calls] == ["pool.call"] * 2
     assert len(returned) == 2
-    for call, stats in zip(calls, returned):
+    for k, (call, stats) in enumerate(zip(calls, returned)):
         kids = _children(events, call)
         assert [e["name"] for e in kids] == [
             "pool.setup", "pool.loop", "pool.finish"]
         setup, loop, _ = kids
-        assert [e["name"] for e in _children(events, setup)] == [
-            "tables.build"]
+        assert [e["name"] for e in _children(events, setup)] == (
+            ["tables.build"] if k == 0 else [])
         launches = _children(events, loop)
         assert {e["name"] for e in launches} == {"pool.launch"}
         assert len(launches) == stats["steps"] > 0
