@@ -88,13 +88,19 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
  13. funnel kernels  K1 and K4 on the funnel's (25,091 primitives) bounce
                rays against their plain versions, timed, with their bounds,
                and K1's time split by P1 on those rays;
+     bvh kernel  the fused pool's closest hit over the BVH (bvh_hit.cu)
+               on the funnel's 131,072 bounce lanes against K1's tile scan
+               (t bit for bit on same-primitive hits, the counts logged)
+               and against its plain traversal, on the showcase with the
+               threshold lowered, on 0 and 1 lanes; timed beside K1;
  14. baseline configs  the fused pool at the published sizes: Shirley
                400x225 @ 16 spp, Cornell 512x512 @ 64 spp, the HDRI scene
                at 1920x1080 @ 8 spp, and the funnel at 800x450 @ 32 spp,
                each warmed up, timed and profiled;
  15. bench     `python -m raytracer_project_tpu_torch.bench` for the
                showcase and the funnel, each printing its JSON line;
- 16. bench_bvh the traversal against K4 on 262,144 rays per case;
+ 16. bench_bvh the traversal against K4 on 262,144 rays per case, and the
+               BVH kernel against K1's tile scan on the same rays;
  17. pool smoke  the unfused pool (RAYTRACER_TPU_NO_FUSED=1): the 128x72 @
                4 spp showcase (the smoke module's render_pool) against its
                device golden and the reference's smoke_pool_128x72.npz,
@@ -239,6 +245,9 @@ CHUNKED_KERNELS = ("closest_hit_feats",)
 YARDSTICKS = ("decode", "shade_advance_unfused",
               "shade_advance_unfused_features", "onehot_fetch_scalar",
               "decode_stage_scalar")
+# The device kernels of the fused pool's closest hit: K1's tile scan below
+# BVH_MIN_PRIMS primitives, the BVH walk from there on (`_k1_kernel`).
+K1_KERNELS = ("tile_scan_kernel", "bvh_hit_kernel")
 # The unfused pool: K1 and none of K3 fused.
 UNFUSED_CHECK = ("closest_hit", "shade_advance", "shade_advance_features")
 _T0 = time.perf_counter()
@@ -1084,6 +1093,7 @@ def _counters():
 
     return {"start_kernel": (fs.initial_state, "launches"),
             "closest_hit": (k1.closest_hit, "launches"),
+            "bvh_closest_hit": (k1.closest_hit, "bvh_launches"),
             "decode": (fs.decode, "launches"),
             "shade_advance": (fs.shade_accumulate, "launches"),
             "shade_advance_features": (fs.shade_accumulate,
@@ -1107,11 +1117,16 @@ def _reset_counters():
 
 def _launches(names) -> dict:
     """The counts of `names`; raises if K2 or the unfused K3 ran since the
-    counts were last set to 0 (no render path launches them)."""
+    counts were last set to 0 (no render path launches them). "closest_hit"
+    is csrc/closest_hit.cu's tile scan alone: its wrapper's count less the
+    BVH kernel's ("bvh_closest_hit"), which the wrapper counts too."""
     counters = _counters()
     off = {k: getattr(*counters[k]) for k in YARDSTICKS}
     check(not any(off.values()), f"a yardstick ran on a render path: {off}")
-    return {k: getattr(*counters[k]) for k in names}
+    out = {k: getattr(*counters[k]) for k in names}
+    if "closest_hit" in out:
+        out["closest_hit"] -= getattr(*counters["bvh_closest_hit"])
+    return out
 
 
 class _PlainCallCounter:
@@ -1344,15 +1359,26 @@ def _profile(label: str, inputs, cfg, host: bool = True,
     scene, cam, env = inputs
     prof = _profile_fn(label, lambda: integrator.render(
         scene, cam, env, 1, cfg)["beauty"].cpu(), host)
-    return _fused_trace(label, prof) if fused else prof
+    return _fused_trace(label, prof, scene.primitive_count) if fused else prof
 
 
-def _fused_trace(label: str, prof: dict | None) -> dict | None:
-    """Checks that a profile of the fused pool holds no index_add_ (no
-    device kernel of it, no aten::index_add_ among the host ops traced),
-    and logs the device launches per pool step: K1, K3 fused and its
-    respawn over K1's launches (the steps launched, the pool's drain
-    steps included), beside the other kernels of the render."""
+def _k1_kernel(prims: int) -> str:
+    """The device kernel of the fused pool's closest hit for a scene of
+    `prims` primitives: the BVH walk from BVH_MIN_PRIMS on, else K1's tile
+    scan."""
+    from raytracer_project_tpu_torch.ops import intersect
+
+    return K1_KERNELS[int(prims >= intersect.BVH_MIN_PRIMS)]
+
+
+def _fused_trace(label: str, prof: dict | None, prims: int) -> dict | None:
+    """Checks that a profile of the fused pool of a scene of `prims`
+    primitives holds no index_add_ (no device kernel of it, no
+    aten::index_add_ among the host ops traced), and that its closest hit
+    ran as `_k1_kernel(prims)` alone, and logs the device launches per pool
+    step: the closest hit, K3 fused and its respawn over the closest hit's
+    launches (the steps launched, the pool's drain steps included), beside
+    the other kernels of the render."""
     if prof is None:
         return None
     scatters = [k for k in list(prof["kernels"]) + list(prof["host_ops"])
@@ -1360,14 +1386,19 @@ def _fused_trace(label: str, prof: dict | None) -> dict | None:
     check(not scatters, f"{label}: index_add_ on the fused pool: {scatters}")
     step, other = {}, 0
     for k, (_, c) in prof["kernels"].items():
-        tag = next((t for t in ("tile_scan_kernel", "shade_kernel",
-                                "respawn_kernel") if t in k), None)
+        tag = next((t for t in K1_KERNELS + ("shade_kernel", "respawn_kernel")
+                    if t in k), None)
         if tag:
             step[tag] = step.get(tag, 0) + c
         elif not k.startswith(("Memcpy", "Memset")):
             other += c
-    n = step.get("tile_scan_kernel", 0)
-    check(n > 0, f"{label}: no K1 launch in the trace")
+    want = _k1_kernel(prims)
+    n = step.get(want, 0)
+    check(n > 0, f"{label}: no {want} launch in the trace ({prims} "
+          f"primitives)")
+    other_k1 = {t: step[t] for t in K1_KERNELS if t != want and t in step}
+    check(not other_k1, f"{label}: {other_k1} in the trace of a scene of "
+          f"{prims} primitives, which takes {want}")
     prof["launches_per_step"] = sum(step.values()) / n
     log(f"  {label}: no index_add_ in the trace; "
         f"{prof['launches_per_step']:.2f} device launches per pool step "
@@ -2315,10 +2346,15 @@ def phase_probes(results: dict, main_rays) -> None:
 
 def _fused_kernel_names(scene, cfg) -> tuple:
     """The counters of the fused pool's kernels for a render: K3's features
-    variant with fog, AOVs or split passes, else its beauty variant."""
+    variant with fog, AOVs or split passes, else its beauty variant; the
+    BVH kernel in K1's place from BVH_MIN_PRIMS primitives on."""
     features = (scene.volumes is not None or cfg.use_albedo or cfg.use_normal
                 or cfg.use_z_depth or cfg.use_reflection or cfg.use_refraction)
-    return FEATURES_KERNELS if features else FUSED_KERNELS
+    names = FEATURES_KERNELS if features else FUSED_KERNELS
+    if _k1_kernel(scene.primitive_count) == "bvh_hit_kernel":
+        names = tuple("bvh_closest_hit" if n == "closest_hit" else n
+                      for n in names)
+    return names
 
 
 def phase_scenes_smoke() -> None:
@@ -2496,6 +2532,131 @@ def phase_funnel_kernels(results: dict) -> None:
         "funnel bounce set", od, 1e-3, scene, tables)
 
 
+def _bvh_against_k1(name, tb, ib, yb, tk, ik, yk) -> dict:
+    """The BVH kernel against K1's tile scan on the same lanes: t bit for
+    bit on every lane where both chose the same primitive, hit and winner
+    flips within the reference's budgets; the counts logged and returned."""
+    import torch
+
+    n = tb.shape[0]
+    hb, hk = tb < 1e30, tk < 1e30
+    both = hb & hk
+    same = both & (ib == ik) & (yb == yk)
+    t_bits = int((tb[same].view(torch.int32)
+                  != tk[same].view(torch.int32)).sum())
+    out = dict(lanes=n, hits=int(both.sum()), same=int(same.sum()),
+               hit_flips=int((hb != hk).sum()),
+               winner_flips=int((both & ~same).sum()), t_bits_differ=t_bits)
+    log(f"  {name}: {out}")
+    check(t_bits == 0, f"{name}: {t_bits} same-primitive t differ from K1's")
+    check(out["hit_flips"] <= max(2, n // 100), f"{name}: hit flips")
+    check(out["winner_flips"] <= max(2, n // 40), f"{name}: winner flips")
+    return out
+
+
+def phase_bvh_kernel(results: dict) -> None:
+    """The fused pool's closest hit past BVH_MIN_PRIMS (csrc/bvh_hit.cu,
+    closest_hit.bvh_closest_hit) on the funnel's 131,072 bounce lanes (one
+    scatter of the 800x450 funnel camera's rays, as phase funnel kernels
+    makes them): against K1's tile scan on the same lanes and tables (t bit
+    for bit where both chose the same primitive; the counts logged), against
+    its plain traversal under the reference's budgets, on the showcase with
+    the threshold lowered, on 0 and 1 lanes; timed beside K1 with K1's byte
+    bound; the tree's nodes, depth and build ms."""
+    import torch
+
+    from raytracer_project_tpu_torch import bench
+    from raytracer_project_tpu_torch.core import rng
+    from raytracer_project_tpu_torch.models import camera as tcam
+    from raytracer_project_tpu_torch.models import environment as tenv
+    from raytracer_project_tpu_torch.models import presets
+    from raytracer_project_tpu_torch.ops import closest_hit as k1
+    from raytracer_project_tpu_torch.ops import fused_step as fs
+    from raytracer_project_tpu_torch.ops import intersect, shade
+
+    dev = torch.device("cuda")
+    env = tenv.make_environment(**ENV_KW).to(dev)
+    scene = presets.bvh_stress_scene(n_spheres=8192, mesh_detail=2,
+                                     with_bvh=False).to(dev)
+    scan = fs.build_tables(scene, env, tenv.PHYSICAL_SUN).scan
+    tree = scan.bvh
+    check(tree is not None, "bvh kernel: the funnel's tables carry no BVH")
+    cam = tcam.make_camera(image_width=800, image_height=450,
+                           **bench.FUNNEL_CAM).to(dev)
+    pix = torch.arange(P_CHUNKED, device=dev)
+    lr = rng.lane_rng(rng.seed_from_int(0), pix, 0).with_ctx(0, 0)
+    o, d = tcam.generate_rays(cam, lr, pix, 800)
+    first = intersect.intersect(scene, o, d, 1e-3, intersect.hit_tables(scene))
+    sc = shade.scatter(scene, intersect.make_record(scene, o, d, first), d, lr)
+    od = torch.cat([sc.origin.T, sc.direction.T])[:, :P_MAIN].contiguous()
+    left = tuple(x[:P_MAIN] for x in (first.prim_idx, first.prim_type,
+                                       first.hit))
+    log(f"bvh kernel: funnel {scene.primitive_count} primitives, "
+        f"{tree.node_count} nodes, depth {tree.depth}, built in "
+        f"{tree.build_ms:.1f} ms")
+    k1_scan = scan._replace(bvh=None)
+    tb, ib, yb = k1.closest_hit(od, 1e-3, scan)
+    tk, ik, yk = k1.closest_hit(od, 1e-3, k1_scan)
+    torch.cuda.synchronize()
+    funnel = _bvh_against_k1("funnel bvh kernel vs K1", tb, ib, yb, tk, ik,
+                             yk)
+    tp, ip, yp = k1.bvh_closest_hit_plain(od, 1e-3, tree)
+    grazing = near_tangent(scene, od[:3].T, od[3:].T, tb, ib, yb)
+    err = hit_agree("funnel bvh kernel vs plain traversal", tb, ib, yb, tp,
+                    ip, yp, left, grazing)
+    for lanes in (0, 1):
+        sub = od[:, :lanes].contiguous()
+        a, b = k1.closest_hit(sub, 1e-3, scan), k1.closest_hit(sub, 1e-3,
+                                                                 k1_scan)
+        torch.cuda.synchronize()
+        check(all(x.shape == (lanes,) and torch.equal(x, y)
+                  for x, y in zip(a, b)), f"bvh kernel: {lanes} lanes")
+    log("  bvh kernel: 0 and 1 lanes as K1")
+
+    ms = time_ms("funnel bvh_closest_hit", lambda: k1.closest_hit(
+        od, 1e-3, scan))
+    k1_ms = time_ms("funnel closest_hit (tile scan)", lambda: k1.closest_hit(
+        od, 1e-3, k1_scan))
+    plain_ms = time_ms("funnel bvh_closest_hit plain",
+                       lambda: k1.bvh_closest_hit_plain(od, 1e-3, tree),
+                       n=1, rounds=2)
+    rows = sum(4 * r.numel() for r in scan.rows)
+    bound, by = bound_ms(P_MAIN * 36 + rows)
+    log(f"  funnel bvh_closest_hit: {ms:.4f} ms/launch on {P_MAIN} bounce "
+        f"lanes, K1's tile scan {k1_ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"bound {bound:.4f} ms ({by}), {ms / bound:.1f}x the bound")
+
+    show = presets.showcase_scene(with_bvh=False).to(dev)
+    orig = intersect.BVH_MIN_PRIMS
+    intersect.BVH_MIN_PRIMS = show.primitive_count
+    try:
+        sscan = fs.build_tables(show, env, tenv.PHYSICAL_SUN).scan
+    finally:
+        intersect.BVH_MIN_PRIMS = orig
+    cam = tcam.make_camera(image_width=800, image_height=450,
+                           **CAM_KW).to(dev)
+    lr = rng.lane_rng(rng.seed_from_int(0), pix, 0).with_ctx(0, 0)
+    o, d = tcam.generate_rays(cam, lr, pix, 800)
+    first = intersect.intersect(show, o, d, 1e-3, intersect.hit_tables(show))
+    sc = shade.scatter(show, intersect.make_record(show, o, d, first), d, lr)
+    sod = torch.cat([sc.origin.T, sc.direction.T])[:, :P_MAIN].contiguous()
+    showcase = _bvh_against_k1(
+        "showcase bvh kernel vs K1", *k1.closest_hit(sod, 1e-3, sscan),
+        *k1.closest_hit(sod, 1e-3, sscan._replace(bvh=None)))
+    s_ms = time_ms("showcase bvh_closest_hit", lambda: k1.closest_hit(
+        sod, 1e-3, sscan))
+    s_k1 = time_ms("showcase closest_hit (tile scan)", lambda: k1.closest_hit(
+        sod, 1e-3, sscan._replace(bvh=None)))
+    results["bvh_closest_hit"] = dict(
+        name="bvh_closest_hit", route="cuda",
+        source="raytracer_project_tpu_torch/csrc/bvh_hit.cu", replaces=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None, k1_ms=k1_ms, nodes=tree.node_count,
+        depth=tree.depth, build_ms=tree.build_ms, funnel=funnel,
+        showcase=dict(showcase, ms=s_ms, k1_ms=s_k1,
+                      nodes=sscan.bvh.node_count, depth=sscan.bvh.depth))
+
+
 def _baseline_configs():
     """(label, scene builder, camera kwargs, environment, config) of the
     repository's render configurations at their published sizes
@@ -2540,11 +2701,15 @@ def _baseline_configs():
                                    max_depth=10, **off))
 
 
-def phase_baseline_configs() -> None:
+def phase_baseline_configs(results: dict) -> None:
     """Each configuration of _baseline_configs on the fused pool: built,
     rendered once to warm up, then timed (wall, segments, steps, sample
     chunks) with the counts read around the timed render, then profiled
-    (K1's ms per launch, device busy and idle share)."""
+    (the closest hit's ms per launch, device busy and idle share). A scene
+    of BVH_MIN_PRIMS primitives or more (the funnel) launches the BVH
+    kernel for every closest hit and K1's tile scan never, in the counts
+    and in the trace, and builds its tables once over the three renders;
+    its launches go to the bvh_closest_hit entry."""
     import math
 
     import numpy as np
@@ -2564,8 +2729,10 @@ def phase_baseline_configs() -> None:
                                **cam_kw)
         chunks = math.ceil(cfg.samples_per_pixel
                            / fused_step.fused_spp_chunk(scene, cfg, env))
+        built = fused_step.tables_cache.built
         integrator.render(scene, cam, env, 0, cfg)["beauty"].cpu()  # warm-up
         names = _fused_kernel_names(scene, cfg)
+        on_bvh = "bvh_closest_hit" in names
         _reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2575,6 +2742,12 @@ def phase_baseline_configs() -> None:
         launches = _launches(names)
         check(all(v > 0 for v in launches.values()),
               f"{label}: a kernel was not launched")
+        tile_scans = _launches(("closest_hit",))["closest_hit"]
+        check(not on_bvh or tile_scans == 0,
+              f"{label}: {tile_scans} tile-scan launches past BVH_MIN_PRIMS")
+        if on_bvh:
+            results["bvh_closest_hit"]["launches"] = launches[
+                "bvh_closest_hit"]
         check(bool(np.isfinite(img).all()) and img.max() > 0,
               f"{label}: image not finite or black")
         log(f"baseline {label}: {scene.primitive_count} primitives (scene "
@@ -2584,14 +2757,21 @@ def phase_baseline_configs() -> None:
             f"{chunks}, segments/s {stats['segments'] / wall:.4g}, launches "
             f"{launches}, mean {img.mean():.4f}")
         prof = _profile(label, (scene, cam, env), cfg, fused=True)
+        if on_bvh:
+            n_built = fused_step.tables_cache.built - built
+            log(f"  {label}: pool tables built {n_built} time(s) over the "
+                f"warm-up, timed and profiled renders")
+            check(n_built == 1, f"{label}: pool tables built {n_built} times")
+        want = _k1_kernel(scene.primitive_count)
         k1 = prof and next((v for k, v in prof["kernels"].items()
-                            if "tile_scan_kernel" in k), None)
+                            if want in k), None)
         if k1:
-            log(f"  {label}: K1 {k1[0] / k1[1]:.4f} ms per launch ({k1[1]} "
-                f"launches, {k1[0]:.1f} ms, {k1[0] / prof['wall_ms']:.3f} of "
-                f"the profiled wall)")
+            log(f"  {label}: {want} {k1[0] / k1[1]:.4f} ms per launch "
+                f"({k1[1]} launches, {k1[0]:.1f} ms, "
+                f"{k1[0] / prof['wall_ms']:.3f} of the profiled wall)")
         else:
-            log(f"  {label}: K1 per launch not measured (not in the trace)")
+            log(f"  {label}: {want} per launch not measured (not in the "
+                f"trace)")
 
 
 def phase_bench() -> None:
@@ -2619,18 +2799,29 @@ def phase_bench() -> None:
 
 def phase_bench_bvh() -> None:
     """tools/bench_bvh's twin: the BVH traversal against K4 on 262,144
-    mixed rays over the reference tool's six cases (one JSON row each);
-    the two agree on a hit and its t (within 1e-3) on at least 96.5% of
-    the rays (the closest-hit budgets: 1% hit flips, 2.5% winner flips)."""
+    mixed rays over the reference tool's six cases and a funnel of 116,226
+    primitives (one JSON row each); the two agree on a hit and its t
+    (within 1e-3) on at least 96.5% of the rays (the closest-hit budgets:
+    1% hit flips, 2.5% winner flips); the fused pool's BVH kernel and K1's
+    tile scan timed on the same rays, their hits within the same budgets
+    and t bit for bit where both chose the same primitive."""
     from raytracer_project_tpu_torch.tools import bench_bvh
 
     log("bench_bvh:")
     for row in bench_bvh.main("cuda"):
-        log(f"  {row['scene']}: {row['primitives']} primitives, traversal "
-            f"{row['bvh_ms']:.2f} ms ({row['bvh_steps']} steps), K4 "
-            f"{row['k4_ms']:.2f} ms, agreement {row['hit_agreement']:.4f}")
+        diff = row["k1_vs_bvh_kernel"]
+        n = row["rays"]
+        log(f"  {row['scene']}: {row['primitives']} primitives, SAH build "
+            f"{row['bvh_build_ms']:.1f} ms, {row['bvh_nodes']} nodes, "
+            f"traversal {row['bvh_ms']:.2f} ms ({row['bvh_steps']} steps), "
+            f"K4 {row['k4_ms']:.2f} ms, agreement {row['hit_agreement']:.4f}; "
+            f"K1 {row['k1_ms']:.3f} ms, BVH kernel "
+            f"{row['bvh_kernel_ms']:.3f} ms, {diff}")
         check(row["hit_agreement"] >= 0.965,
               f"bench_bvh {row['scene']}: traversal and K4 disagree")
+        check(diff["hit_flips"] <= n // 100 and diff["winner_flips"] <= n // 40
+              and diff["t_bits_differ"] == 0,
+              f"bench_bvh {row['scene']}: BVH kernel and K1 disagree")
 
 
 # --- phases 17-22: the unfused pool, pixel windows, sort_rays, processes,
@@ -2978,7 +3169,8 @@ def phase_windows(results: dict) -> None:
                 integrator.SampleBuffers(*(x[:cfg.n_pixels] for x in acc)), full)
     _fused_trace("4 fused windows", _profile_fn(
         "4 fused windows", lambda: prender.sharded_accumulate(
-            scene, cam_w, env, 3, cfg, ids, 0, mesh=mesh).beauty.cpu()))
+            scene, cam_w, env, 3, cfg, ids, 0, mesh=mesh).beauty.cpu()),
+        scene.primitive_count)
     img = prender.render_sharded(scene, cam_w, env, 3, cfg, mesh)["beauty"]
     check(bool(torch.isfinite(img).all()), "render_sharded: not finite")
 
@@ -4394,7 +4586,8 @@ def main() -> int:
     phase_scenes_smoke()
     phase_bvh_traverse()
     phase_funnel_kernels(results)
-    phase_baseline_configs()
+    phase_bvh_kernel(results)
+    phase_baseline_configs(results)
     phase_bench()
     phase_bench_bvh()
     phase_pool_smoke(results)

@@ -29,8 +29,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("closest_hit", "decode", "shade_advance", "probe_a1_ablate",
-           "probe_onehot", "probe_decode", "launch_floor")
+SOURCES = ("closest_hit", "bvh_hit", "decode", "shade_advance",
+           "probe_a1_ablate", "probe_onehot", "probe_decode", "launch_floor")
 
 # --fmad=false keeps every a*b+c as a rounded product and a rounded sum,
 # the arithmetic of the plain PyTorch versions; fmaf() stays an FMA.
@@ -50,6 +50,7 @@ SIGNATURES = {
                              + [_P, _P, _P, _P]),
     "closest_hit_feats_dense": ("closest_hit", [_P, _I, _F]
                                 + [_P, _I, _P, _I] * 3 + [_P, _P, _P, _P]),
+    "bvh_closest_hit": ("bvh_hit", [_P, _I, _F] + [_P] * 9),
     "decode_launch": ("decode", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                                  _I, _I, _I, _I, _F, _F, _I, _F, _F, _P, _P]),
     "shade_advance_launch": ("shade_advance",

@@ -14,18 +14,25 @@ The SAH build runs in the native library (native/, the port's copy of
 csrc/zenith_native.cpp) when it builds, and in Python otherwise or with
 use_native=False. The two SAH trees may differ in shape; every tree gives
 the same closest hits.
+
+`hit_bvh` hands a scene's tree to the fused pool's closest hit
+(ops/closest_hit.py): the tree on the scene's device and its node records
+packed for the kernel (csrc/bvh_hit.cu), built once per scene.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core.tree import to_device
 from ..models.geometry import PRIM_BOX, PRIM_SPHERE, PRIM_TRIANGLE
+from ..utils import spans
 
 # AABB padding (the reference engine's aabb-expand delta, triangle.hpp:95,
 # cube.hpp:35).
@@ -34,6 +41,19 @@ PAD = 1e-4
 # primitive tests are one wide vectorized op.
 DEFAULT_LEAF_SIZE = 16
 SAH_BINS = 16
+# The kernel's node records (csrc/bvh_hit.cu): a leaf's word is
+# (first slot << LEAF_SHIFT) | count, so a leaf holds at most LEAF_MAX
+# slots and a tree at most SLOT_MAX.
+LEAF_SHIFT = 8
+LEAF_MAX = (1 << LEAF_SHIFT) - 1
+SLOT_MAX = 1 << (31 - LEAF_SHIFT)
+# Each node box is widened by NODE_PAD plus NODE_PAD_REL of its largest
+# coordinate on each axis when packed for the kernel: more than the
+# rounding of the slab test and of the primitives' f32 bounds, so that no
+# primitive the epilogue hits is culled (a wider box costs a test, never a
+# hit).
+NODE_PAD = PAD
+NODE_PAD_REL = 2.0 ** -20
 
 
 class FlatBVH(NamedTuple):
@@ -362,3 +382,72 @@ def build_bvh(scene, leaf_size: int = DEFAULT_LEAF_SIZE, mode: str = "sah",
         n_levels=int(tree["n_levels"]),
         leaf_size=max(1, int(tree["count"].max())),
     )
+
+
+class HitBVH(NamedTuple):
+    """A scene's BVH for the fused pool's closest hit, on the scene's device.
+
+    tree      FlatBVH    the plain traversal's tables (ops/traverse.py)
+    nodes     f32[NN, 8] the kernel's records: min xyz, escape (int bits),
+                         max xyz, leaf word (int bits; 0 inner)
+    slots     i32[P]     (row << 2) | type of each leaf slot
+    build_ms  float      host milliseconds of the build (0.0 when the scene
+                         brought its own tree)
+    """
+
+    tree: FlatBVH
+    nodes: torch.Tensor
+    slots: torch.Tensor
+    build_ms: float
+
+    @property
+    def node_count(self) -> int:
+        return self.tree.node_count
+
+    @property
+    def depth(self) -> int:
+        return int(self.tree.n_levels)
+
+
+def kernel_records(tree: FlatBVH) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nodes f32[NN, 8], slots i32[P]) of csrc/bvh_hit.cu for `tree`, on
+    its device: each node's box widened by NODE_PAD + NODE_PAD_REL x its
+    largest coordinate, its escape and leaf word stored as the bits of
+    floats. Raises ValueError past the records' limits (LEAF_MAX slots in a
+    leaf, SLOT_MAX in the tree)."""
+    n_slots = int(tree.prim_type.shape[0])
+    if int(tree.count.max()) > LEAF_MAX or n_slots > SLOT_MAX:
+        raise ValueError(f"a BVH of {n_slots} slots with leaves of up to "
+                         f"{int(tree.count.max())}: the kernel's records hold "
+                         f"{SLOT_MAX} slots, {LEAF_MAX} a leaf")
+    lo, hi = tree.node_min.float(), tree.node_max.float()
+    pad = NODE_PAD + NODE_PAD_REL * torch.maximum(lo.abs(), hi.abs())
+    word = torch.where(tree.count > 0,
+                       tree.first * (1 << LEAF_SHIFT) + tree.count, 0)
+    bits = lambda x: x.to(torch.int32).contiguous().view(torch.float32)
+    nodes = torch.cat([lo - pad, bits(tree.escape)[:, None], hi + pad,
+                       bits(word)[:, None]], dim=1).contiguous()
+    slots = (tree.prim_row.to(torch.int32) * 4
+             + tree.prim_type.to(torch.int32)).contiguous()
+    return nodes, slots
+
+
+def hit_bvh(scene) -> HitBVH:
+    """The scene's BVH for the closest hit, on the scene's device: the
+    scene's own tree when it has one, else a new build (`build_bvh`,
+    inside the span `bvh.build`), with its kernel records. Build once per
+    scene (fused_step.build_tables, under the pool's DerivedCache);
+    `hit_bvh.builds` counts the trees built."""
+    dev = scene.spheres.center.device
+    tree, build_ms = scene.bvh, 0.0
+    if tree is None:
+        with spans.span("bvh.build"):
+            t0 = time.perf_counter()
+            tree = build_bvh(scene).to(dev)
+            build_ms = 1e3 * (time.perf_counter() - t0)
+        kernels.count(hit_bvh, "builds")
+    nodes, slots = kernel_records(tree)
+    return HitBVH(tree=tree, nodes=nodes, slots=slots, build_ms=build_ms)
+
+
+hit_bvh.builds = 0

@@ -5,7 +5,12 @@
   * K4 `closest_hit_feats`, the port of `_closest_hit_kernel` (the Pallas
     call at pallas_intersect.py:391), behind intersect.intersect on the
     chunked integrator: the same scan over features prebuilt by the caller
-    as f32[16, N] rows (intersect.ray_feature_rows).
+    as f32[16, N] rows (intersect.ray_feature_rows);
+  * `bvh_closest_hit`, which `closest_hit` takes for tables that carry a
+    BVH (the fused pool's, from intersect.BVH_MIN_PRIMS primitives on):
+    the threaded tree walked per ray (csrc/bvh_hit.cu; plain version
+    ops/traverse.py intersect_flat), each leaf slot tested with K1's dots
+    and epilogues on K1's compact rows, so it returns K1's answer.
 
 For every ray (o, d) the 16 ray features [d, o, o x d, o.d, |o|^2, 1,
 |d|^2, 0, 0, 0] are formed, and the sphere, triangle and box coefficient
@@ -108,6 +113,8 @@ class ScanTables(NamedTuple):
     rows: tuple     # (sphere, tri, box) f32[count, ROW_WIDTHS]: the kernels'
     bounds: tuple   # (sphere, tri, box) f32[C_pad / SCAN_TILE, 6] tile AABBs
     counts: tuple   # (n_spheres, n_tris, n_boxes) ints
+    bvh: object = None  # ops/bvh.py HitBVH: the fused pool attaches it past
+                        # intersect.BVH_MIN_PRIMS (`closest_hit` then walks it)
 
 
 def coarsen_bounds(fine: torch.Tensor, width: int = CHUNK_PRIMS) -> torch.Tensor:
@@ -201,21 +208,27 @@ def _outputs(rays, n):
             torch.empty((n,), dtype=torch.int32, device=rays.device))
 
 
+def _check_rows(rays, tables: ScanTables) -> None:
+    """Raise unless the rays are detached and each table's compact rows are
+    [count, ROW_WIDTHS] on a 16-byte boundary, as the kernels read them."""
+    if rays.requires_grad:
+        # The ctypes launch records nothing for autograd.
+        raise ValueError("the closest-hit kernels take detached rays "
+                         "(intersect.intersect_detached)")
+    for rows, n_rows, w in zip(tables.rows, tables.counts, ROW_WIDTHS):
+        if rows.shape != (n_rows, w) or rows.data_ptr() % 16:
+            raise ValueError(f"compact rows {tuple(rows.shape)}, expected "
+                             f"({n_rows}, {w}) on a 16-byte boundary")
+
+
 def scan_args(rays, n, tmin, tables: ScanTables) -> list:
     """The compact-row scan's C arguments (rays, n, tmin, then each table's
     rows, tile bounds and count), after checking what the kernel assumes;
     csrc/closest_hit.cu's entries and P1's take them."""
     kernels.require_cuda(rays, *tables.rows, *tables.bounds,
                          dtype=torch.float32)
-    if rays.requires_grad:
-        # The ctypes launch records nothing for autograd.
-        raise ValueError("the closest-hit kernels take detached rays "
-                         "(intersect.intersect_detached)")
-    for rows, n_rows, w, bnd in zip(tables.rows, tables.counts, ROW_WIDTHS,
-                                    tables.bounds):
-        if rows.shape != (n_rows, w) or rows.data_ptr() % 16:
-            raise ValueError(f"compact rows {tuple(rows.shape)}, expected "
-                             f"({n_rows}, {w}) on a 16-byte boundary")
+    _check_rows(rays, tables)
+    for n_rows, bnd in zip(tables.counts, tables.bounds):
         if bnd.shape[0] * SCAN_TILE < n_rows:
             raise ValueError(f"{bnd.shape[0]} tile bounds of width "
                              f"{SCAN_TILE} for {n_rows} rows")
@@ -236,10 +249,15 @@ def _launch(entry, rays, n, tmin, tables: ScanTables):
 def closest_hit(od, tmin: float, tables: ScanTables):
     """Closest hit of the rays od f32[6, P] against a scene's ScanTables.
 
-    On CPU tensors this is `closest_hit_plain`; on CUDA tensors it launches
-    csrc/closest_hit.cu's closest_hit_od on the compact rows (the tile
-    bounds are used for culling only). Returns (t f32[P], idx i32[P],
-    type i32[P])."""
+    Tables that carry a BVH (`tables.bvh`) take `bvh_closest_hit`; the
+    others K1's tile scan: on CPU tensors `closest_hit_plain`, on CUDA
+    tensors csrc/closest_hit.cu's closest_hit_od on the compact rows (the
+    tile bounds are used for culling only). Returns (t f32[P], idx i32[P],
+    type i32[P]). `launches` counts the launches of both kernels on the
+    card, `bvh_launches` those of the BVH kernel; on CPU tensors nothing
+    launches and nothing is counted."""
+    if tables.bvh is not None:
+        return bvh_closest_hit(od, tmin, tables)
     if od.device.type == "cpu":
         return closest_hit_plain(od, tmin, tables.coeffs, tables.counts)
     out = _launch("closest_hit_od", od, od.shape[1], tmin, tables)
@@ -248,6 +266,49 @@ def closest_hit(od, tmin: float, tables: ScanTables):
 
 
 closest_hit.launches = 0
+closest_hit.bvh_launches = 0
+
+
+def bvh_closest_hit_plain(od, tmin: float, bvh):
+    """Plain PyTorch BVH closest hit: the threaded traversal of
+    ops/traverse.py over bvh.tree (ops/bvh.py HitBVH), its leaves tested by
+    the brute-force oracle's arithmetic. Returns K1's (t, idx, type)."""
+    from . import traverse
+
+    hit = traverse.intersect_flat(bvh.tree, od[:3].T, od[3:6].T, tmin)
+    return hit.t, hit.prim_idx, hit.prim_type
+
+
+def bvh_closest_hit(od, tmin: float, tables: ScanTables):
+    """The closest hit of the rays od f32[6, P] over the tree tables.bvh.
+
+    On CPU tensors this is `bvh_closest_hit_plain`; on CUDA tensors it
+    launches csrc/bvh_hit.cu's bvh_closest_hit, which tests each leaf slot
+    with K1's dots and epilogues on the compact rows, so that a primitive
+    it shares with K1's answer has K1's t bit for bit, and breaks ties on t
+    as K1 does; each launch counts on `closest_hit.launches` and
+    `closest_hit.bvh_launches`. Returns (t f32[P], idx i32[P], type
+    i32[P])."""
+    bvh = tables.bvh
+    if od.device.type == "cpu":
+        return bvh_closest_hit_plain(od, tmin, bvh)
+    kernels.require_cuda(od, bvh.nodes, *tables.rows, dtype=torch.float32)
+    kernels.require_cuda(od, bvh.slots)
+    if bvh.slots.dtype != torch.int32:
+        raise ValueError(f"leaf slots of {bvh.slots.dtype}, expected int32")
+    _check_rows(od, tables)
+    if (bvh.nodes.shape != (bvh.node_count, 8) or bvh.nodes.data_ptr() % 16
+            or od.shape[0] != 6):
+        raise ValueError(f"node records {tuple(bvh.nodes.shape)} and rays "
+                         f"{tuple(od.shape)}: expected ({bvh.node_count}, 8) "
+                         f"on a 16-byte boundary and [6, P]")
+    n = od.shape[1]
+    out = _outputs(od, n)
+    kernels.launch("bvh_closest_hit", od, n, tmin, bvh.nodes, bvh.slots,
+                   *tables.rows, *out)
+    kernels.count(closest_hit)
+    kernels.count(closest_hit, "bvh_launches")
+    return out
 
 
 def closest_hit_feats(feats, tmin: float, tables: ScanTables):

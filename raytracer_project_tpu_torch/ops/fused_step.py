@@ -4,7 +4,9 @@ raytracer_project_tpu/ops/fused_step.py).
 A pool of P lanes traces one path segment per step. Each step is two
 kernels:
 
-  K1 closest hit    ops/closest_hit.py          (csrc/closest_hit.cu)
+  K1 closest hit    ops/closest_hit.py          (csrc/closest_hit.cu; past
+                                                 BVH_MIN_PRIMS primitives
+                                                 csrc/bvh_hit.cu)
   K3 fused          `shade_accumulate` below    (csrc/shade_advance.cu)
 
 K3 fused decodes K1's hits in registers (K2's work, csrc/decode.cuh),
@@ -62,7 +64,9 @@ from ..models import materials as mat_mod
 from ..models import textures as tex_mod
 from ..models.geometry import PRIM_BOX, PRIM_SPHERE, PRIM_TRIANGLE
 from ..utils import spans
+from . import bvh as bvh_mod
 from . import closest_hit as k1
+from . import intersect
 from .intersect import (
     _BOX_DEFAULT_ROW, _SPHERE_DEFAULT_ROW, _TRI_DEFAULT_ROW, _box_record_soa,
     _packed_all, _sphere_record_soa, _triangle_record_soa,
@@ -134,7 +138,7 @@ class FusedTables(NamedTuple):
     """Scene constants read by the kernels: plain f32 row-major tables."""
 
     scan: k1.ScanTables  # K1's tables (dense, compact rows, tile AABBs,
-                         # counts)
+                         # counts; the BVH past BVH_MIN_PRIMS)
     rectab: torch.Tensor     # f32[Ntot, 28] packed primitive shading rows
     mattab: torch.Tensor     # f32[M, 8] albedo rgb, param, mtype, tex, bump, bstr
     texmeta: torch.Tensor    # f32[K, 10] kind, w, h, inv_scale, even rgb, odd rgb
@@ -147,7 +151,9 @@ class FusedTables(NamedTuple):
 
 
 def build_tables(scene, env, env_mode: int) -> FusedTables:
-    """Kernel tables from a scene (any device)."""
+    """Kernel tables from a scene (any device). A scene of
+    intersect.BVH_MIN_PRIMS primitives or more also gets its BVH
+    (ops/bvh.py hit_bvh), which K1's entry then walks."""
     m = scene.materials
     f32 = lambda x: x.to(torch.float32)
     mattab = torch.stack(
@@ -168,6 +174,8 @@ def build_tables(scene, env, env_mode: int) -> FusedTables:
         env_hw = (int(env.hdr_image.shape[0]), int(env.hdr_image.shape[1]))
         env_rows = pad1(env.hdr_image.reshape(-1, 3))
     scan = k1.scan_tables(scene)
+    if scene.primitive_count >= intersect.BVH_MIN_PRIMS:
+        scan = scan._replace(bvh=bvh_mod.hit_bvh(scene))
     vparams = torch.zeros((1, _VP_COLS), dtype=torch.float32,
                           device=mattab.device)
     vol = scene.volumes

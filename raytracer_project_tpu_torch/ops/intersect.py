@@ -674,8 +674,11 @@ def make_record(scene, o, d, hit: Hit) -> HitRecord:
 
 # --- closest-hit routing of the chunked integrator ---------------------------
 
-# Off the card, scenes with a BVH and this many primitives or more take the
-# BVH (the reference's BVH_MIN_PRIMS).
+# Scenes of this many primitives or more take the BVH (the reference's
+# BVH_MIN_PRIMS): off the card on the chunked path (`intersect_dispatch`),
+# and on every device in the fused pool, whose tables then carry the tree
+# for its closest hit (fused_step.build_tables, csrc/bvh_hit.cu on the
+# card).
 BVH_MIN_PRIMS = 8192
 
 
@@ -696,7 +699,9 @@ def ray_feature_rows(o, d):
 
 
 def intersect_dispatch(scene, device) -> str:
-    """The closest-hit route for rays on `device`:
+    """The chunked path's closest-hit route for rays on `device` (the
+    fused pool routes on its own: past BVH_MIN_PRIMS its tables carry the
+    BVH on every device, fused_step.build_tables):
       * on CUDA, "k4" (the prebuilt-feature closest hit of
         ops/closest_hit.py, its kernel) whenever the scene has coefficient
         tables, the counterpart of the reference's accelerator route;

@@ -94,7 +94,12 @@ def intersect_bvh(scene, o, d, tmin: float, stats: dict | None = None) -> Hit:
     """Closest hit of the rays o, d f32[N, 3] beyond tmin by threaded-BVH
     traversal of scene.bvh (on the rays' device). stats, when given, adds
     the steps taken under "iterations"."""
-    bvh = scene.bvh
+    return intersect_flat(scene.bvh, o, d, tmin, stats)
+
+
+def intersect_flat(bvh, o, d, tmin: float, stats: dict | None = None) -> Hit:
+    """`intersect_bvh` over the FlatBVH `bvh` itself: the plain version of
+    the fused pool's BVH closest hit (ops/closest_hit.py)."""
     n = o.shape[0]
     dev = o.device
     k = bvh.leaf_size

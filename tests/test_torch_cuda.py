@@ -1356,3 +1356,193 @@ def _subtree(event) -> list:
     for child in event.cpu_children:
         out += [child, *_subtree(child)]
     return out
+
+
+# --- the fused pool's closest hit over the BVH (csrc/bvh_hit.cu) -----------
+
+def _bvh_funnel_rays(cuda, n=131_072):
+    """The funnel (25,090 primitives) with its pool tables (BVH attached) on
+    the card, and n bounce lanes: one scatter of the 800x450 funnel camera's
+    rays at their first hits, and what each lane left (index, type, hit)."""
+    from raytracer_project_tpu_torch.ops import shade
+
+    scene = presets.bvh_stress_scene(n_spheres=8192, mesh_detail=2,
+                                     with_bvh=False).to(cuda)
+    scan = fs.build_tables(scene, tenv.make_environment(**ENV_KW).to(cuda),
+                           tenv.PHYSICAL_SUN).scan
+    cam = tcam.make_camera(image_width=800, image_height=450,
+                           **FUNNEL_CAM).to(cuda)
+    pix = torch.arange(800 * 450, device=cuda)[:n]
+    lr = rng.lane_rng(rng.seed_from_int(0), pix, 0).with_ctx(0, 0)
+    o, d = tcam.generate_rays(cam, lr, pix, 800)
+    first = intersect.intersect(scene, o, d, 1e-3, intersect.hit_tables(scene))
+    sc = shade.scatter(scene, intersect.make_record(scene, o, d, first), d, lr)
+    od = torch.cat([sc.origin.T, sc.direction.T]).contiguous()
+    return scene, scan, od, (first.prim_idx, first.prim_type, first.hit)
+
+
+def _against_k1(tb, ib, yb, tk, ik, yk, n):
+    """The BVH kernel against K1's tile scan: t bit for bit on every lane
+    where both chose the same primitive, the rest within the reference's
+    budgets; returns (hits, hit flips, winner flips)."""
+    hb, hk = tb < 1e30, tk < 1e30
+    both = hb & hk
+    same = both & (ib == ik) & (yb == yk)
+    assert torch.equal(tb[same], tk[same])
+    flips, winner = int((hb != hk).sum()), int((both & ~same).sum())
+    assert flips <= max(2, n // 100) and winner <= max(2, n // 40)
+    return int(both.sum()), flips, winner
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_matches_k1_on_funnel_bounce_rays(cuda):
+    """On the funnel's 131,072 bounce lanes the BVH kernel finds K1's hits:
+    t bit for bit where both chose the same primitive, hit and winner flips
+    within stage_hit_agree's budgets; and it is counted as K1's launch."""
+    scene, scan, od, _ = _bvh_funnel_rays(cuda)
+    assert scan.bvh is not None and scan.bvh.nodes.is_cuda
+    launches, bvh_launches = k1.closest_hit.launches, k1.closest_hit.bvh_launches
+    tb, ib, yb = k1.closest_hit(od, 1e-3, scan)
+    assert (k1.closest_hit.launches - launches,
+            k1.closest_hit.bvh_launches - bvh_launches) == (1, 1)
+    tk, ik, yk = k1.closest_hit(od, 1e-3, scan._replace(bvh=None))
+    n = od.shape[1]
+    hits, flips, winner = _against_k1(tb, ib, yb, tk, ik, yk, n)
+    print(f"funnel bounce lanes {n}: hits {hits}, hit flips {flips}, "
+          f"winner flips {winner}")
+    assert hits > n // 10
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_matches_k1_on_the_showcase(cuda, monkeypatch):
+    """The showcase's tables with the threshold lowered under its primitive
+    count: the BVH kernel against K1's tile scan on camera-like and
+    bounce-like rays, as on the funnel."""
+    scene = presets.showcase_scene(with_bvh=False).to(cuda)
+    monkeypatch.setattr(intersect, "BVH_MIN_PRIMS", scene.primitive_count)
+    scan = fs.build_tables(scene, tenv.make_environment(**ENV_KW).to(cuda),
+                           tenv.PHYSICAL_SUN).scan
+    assert scan.bvh is not None
+    r = np.random.default_rng(5)
+    o = np.stack([r.uniform(-10, 10, P), r.uniform(0.05, 4, P),
+                  r.uniform(-10, 10, P)], 1)
+    d = r.normal(size=(P, 3))
+    od = torch.as_tensor(np.concatenate([o.T, d.T]).astype(np.float32)).to(
+        cuda).contiguous()
+    tb, ib, yb = k1.closest_hit(od, 1e-3, scan)
+    tk, ik, yk = k1.closest_hit(od, 1e-3, scan._replace(bvh=None))
+    hits, flips, winner = _against_k1(tb, ib, yb, tk, ik, yk, P)
+    print(f"showcase lanes {P}: hits {hits}, hit flips {flips}, "
+          f"winner flips {winner}")
+    assert hits > P // 4
+
+
+def _grazing(scene, o, d, t, idx, typ):
+    """Lanes whose hit is met so nearly tangentially that f32 cannot resolve
+    t to 5e-2 (chip_smoke.py near_tangent): an error of 8 ulps of the
+    largest term each formulation sums, carried to t in f64 -- a sphere's
+    c = |o|^2 - 2 o.C + |C|^2 - r^2 moves a root by dc / (2 sqrt(disc)); a
+    triangle's t = (o - v0).n / (-d.n) by the numerator's and the
+    denominator's errors over |d.n|."""
+    from raytracer_project_tpu_torch.models.geometry import (
+        PRIM_SPHERE, PRIM_TRIANGLE)
+
+    f64, ulps = torch.float64, 8 * 2.0 ** -23
+    o64, d64, t64 = o.to(f64), d.to(f64), t.to(f64).abs()
+    norm = lambda x: torch.sqrt((x * x).sum(-1))
+    sph, tri = typ == PRIM_SPHERE, typ == PRIM_TRIANGLE
+    row = torch.where(sph, idx, 0).long()
+    c = scene.spheres.center[row].to(f64)
+    r = scene.spheres.radius[row].to(f64)
+    oc = c - o64
+    h = (d64 * oc).sum(-1)
+    disc = h * h - (d64 * d64).sum(-1) * ((oc * oc).sum(-1) - r * r)
+    mag = (o64 * o64).sum(-1) + (c * c).sum(-1) + r * r
+    dt_sph = ulps * mag / (2.0 * torch.sqrt(disc.clamp(min=1e-300)))
+    row = torch.where(tri, idx, 0).long()
+    v0 = scene.triangles.v0[row].to(f64)
+    n = torch.linalg.cross(scene.triangles.e1[row].to(f64),
+                           scene.triangles.e2[row].to(f64), dim=-1)
+    det = (d64 * n).sum(-1).abs().clamp(min=1e-300)
+    dt_tri = ulps * norm(n) * (norm(o64) + norm(v0) + t64 * norm(d64)) / det
+    dt = torch.where(sph, dt_sph, torch.where(tri, dt_tri, 0.0))
+    return (t < 1e30) & (dt > 5e-2 * t64)
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_matches_its_plain_traversal(cuda):
+    """The kernel against its plain version (the threaded traversal of
+    ops/traverse.py, on the card) on the funnel's bounce lanes, under the
+    reference's budgets; a lane that hits the primitive it left, within
+    0.02 of its origin (the funnel's spheres overlap), or so nearly
+    tangentially that f32 cannot resolve t (`_grazing`), counts in the 3%
+    budget but not under the 5e-2 cap: each formulation's rounding decides
+    such a root."""
+    scene, scan, od, left = _bvh_funnel_rays(cuda, n=65_536)
+    tb, ib, yb = k1.bvh_closest_hit(od, 1e-3, scan)
+    tp, ip, yp = k1.bvh_closest_hit_plain(od, 1e-3, scan.bvh)
+    n = od.shape[1]
+    hb, hp = tb < 1e30, tp < 1e30
+    assert int(hb.sum()) > n // 10
+    assert int((hb != hp).sum()) <= n // 100
+    both = hb & hp
+    same = both & (ib == ip) & (yb == yp)
+    assert int((both & ~same).sum()) <= n // 40
+    near = ((left[2] & (ib == left[0]) & (yb == left[1]))
+            | (torch.minimum(tb, tp) < 0.02)
+            | _grazing(scene, od[:3].T, od[3:].T, tb, ib, yb))
+    rel = (tb - tp).abs() / tp.abs().clamp(min=1e-3)
+    assert float((rel[same] > 5e-3).float().mean()) <= 0.03
+    assert float(rel[same & ~near].max()) <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [0, 1])
+def test_bvh_kernel_on_no_lane_and_one(cuda, lanes):
+    """No lane launches nothing and returns empty outputs; one lane gets
+    K1's answer."""
+    scene, scan, od, _ = _bvh_funnel_rays(cuda, n=64)
+    od = od[:, :lanes].contiguous()
+    tb, ib, yb = k1.closest_hit(od, 1e-3, scan)
+    torch.cuda.synchronize()
+    assert tb.shape == ib.shape == yb.shape == (lanes,)
+    tk, ik, yk = k1.closest_hit(od, 1e-3, scan._replace(bvh=None))
+    assert torch.equal(tb, tk) and torch.equal(ib, ik) and torch.equal(yb, yk)
+
+
+@pytest.mark.cuda
+def test_fused_pool_renders_the_funnel_through_the_bvh_kernel(cuda,
+                                                             monkeypatch):
+    """integrator.render of the funnel (64x36 @ 2 spp) on the card: every
+    closest hit of the pool is a BVH launch, the tree is built once, and
+    the frame matches the same frame on K1's tile scan (a frame whose pool
+    was handed tables without the tree) within the pool budgets."""
+    scene = presets.bvh_stress_scene(n_spheres=8192, mesh_detail=2,
+                                     with_bvh=False)
+    cam = tcam.make_camera(image_width=64, image_height=36, **FUNNEL_CAM)
+    env = tenv.make_environment(**ENV_KW)
+    cfg = integrator.RenderConfig(width=64, height=36, samples_per_pixel=2,
+                                  max_depth=10)
+    from raytracer_project_tpu_torch.ops import bvh as tbvh
+
+    builds = tbvh.hit_bvh.builds
+    launches, bvh_launches = k1.closest_hit.launches, k1.closest_hit.bvh_launches
+    out = integrator.render(scene, cam, env, 1, cfg, device=cuda)["beauty"]
+    n = k1.closest_hit.launches - launches
+    assert n > 0 and k1.closest_hit.bvh_launches - bvh_launches == n
+    assert tbvh.hit_bvh.builds == builds + 1
+    orig = fs.build_tables
+
+    def without_tree(*args):
+        t = orig(*args)
+        return t._replace(scan=t.scan._replace(bvh=None))
+
+    monkeypatch.setattr(fs, "build_tables", without_tree)
+    monkeypatch.setattr(fs, "tables_cache", fs.DerivedCache())
+    bvh_launches = k1.closest_hit.bvh_launches
+    ref = integrator.render(scene, cam, env, 1, cfg, device=cuda)["beauty"]
+    assert k1.closest_hit.bvh_launches == bvh_launches
+    a, b = out.cpu().numpy(), ref.cpu().numpy()
+    assert np.isfinite(a).all() and a.max() > 0
+    dd = np.abs(a - b)
+    assert dd.mean() <= 0.01 and (dd.max(axis=-1) > 0.05).mean() <= 0.01
