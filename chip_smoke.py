@@ -92,7 +92,9 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
                on the funnel's 131,072 bounce lanes against K1's tile scan
                (t bit for bit on same-primitive hits, the counts logged)
                and against its plain traversal, on the showcase with the
-               threshold lowered, on 0 and 1 lanes; timed beside K1;
+               threshold lowered, on 0 and 1 lanes; timed beside K1; the
+               walk at leaf sizes 2, 4, 8 and 16, timed, with its counts
+               per ray;
  14. baseline configs  the fused pool at the published sizes: Shirley
                400x225 @ 16 spp, Cornell 512x512 @ 64 spp, the HDRI scene
                at 1920x1080 @ 8 spp, and the funnel at 800x450 @ 32 spp,
@@ -100,7 +102,8 @@ Phases (each prints flushed lines; any failure raises and exits non-zero):
  15. bench     `python -m raytracer_project_tpu_torch.bench` for the
                showcase and the funnel, each printing its JSON line;
  16. bench_bvh the traversal against K4 on 262,144 rays per case, and the
-               BVH kernel against K1's tile scan on the same rays;
+               BVH kernel against K1's tile scan on the same rays, with
+               each case's walk sweep;
  17. pool smoke  the unfused pool (RAYTRACER_TPU_NO_FUSED=1): the 128x72 @
                4 spp showcase (the smoke module's render_pool) against its
                device golden and the reference's smoke_pool_128x72.npz,
@@ -2562,7 +2565,9 @@ def phase_bvh_kernel(results: dict) -> None:
     for bit where both chose the same primitive; the counts logged), against
     its plain traversal under the reference's budgets, on the showcase with
     the threshold lowered, on 0 and 1 lanes; timed beside K1 with K1's byte
-    bound; the tree's nodes, depth and build ms."""
+    bound; the tree's nodes, depth and build ms; and the walk sweep on the
+    same lanes (`log_walk_sweep`): the walk at each leaf size, timed and
+    counted."""
     import torch
 
     from raytracer_project_tpu_torch import bench
@@ -2573,6 +2578,7 @@ def phase_bvh_kernel(results: dict) -> None:
     from raytracer_project_tpu_torch.ops import closest_hit as k1
     from raytracer_project_tpu_torch.ops import fused_step as fs
     from raytracer_project_tpu_torch.ops import intersect, shade
+    from raytracer_project_tpu_torch.tools import bench_bvh
 
     dev = torch.device("cuda")
     env = tenv.make_environment(**ENV_KW).to(dev)
@@ -2592,7 +2598,8 @@ def phase_bvh_kernel(results: dict) -> None:
     left = tuple(x[:P_MAIN] for x in (first.prim_idx, first.prim_type,
                                        first.hit))
     log(f"bvh kernel: funnel {scene.primitive_count} primitives, "
-        f"{tree.node_count} nodes, depth {tree.depth}, built in "
+        f"{tree.node_count} nodes ({tree.nodes.shape[0]} records), depth "
+        f"{tree.depth}, leaves of up to {tree.tree.leaf_size}, built in "
         f"{tree.build_ms:.1f} ms")
     k1_scan = scan._replace(bvh=None)
     tb, ib, yb = k1.closest_hit(od, 1e-3, scan)
@@ -2647,14 +2654,44 @@ def phase_bvh_kernel(results: dict) -> None:
         sod, 1e-3, sscan))
     s_k1 = time_ms("showcase closest_hit (tile scan)", lambda: k1.closest_hit(
         sod, 1e-3, sscan._replace(bvh=None)))
+    walks = log_walk_sweep("funnel bounce lanes",
+                           bench_bvh.walk_sweep(scene, od, k1_scan), P_MAIN)
     results["bvh_closest_hit"] = dict(
         name="bvh_closest_hit", route="cuda",
         source="raytracer_project_tpu_torch/csrc/bvh_hit.cu", replaces=None,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=None, k1_ms=k1_ms, nodes=tree.node_count,
-        depth=tree.depth, build_ms=tree.build_ms, funnel=funnel,
+        depth=tree.depth, leaf_size=tree.tree.leaf_size,
+        build_ms=tree.build_ms, funnel=funnel, walks=walks,
         showcase=dict(showcase, ms=s_ms, k1_ms=s_k1,
                       nodes=sscan.bvh.node_count, depth=sscan.bvh.depth))
+
+
+def log_walk_sweep(name: str, rows: list, n: int) -> list:
+    """Log tools/bench_bvh.walk_sweep's rows on n lanes: each leaf size's
+    ms a launch and mean counts per ray, and the fastest leaf size beside
+    the pool's (ops/bvh.py HIT_LEAF_SIZE). Every walk's hits are K1's: t
+    bit for bit where both chose the same primitive, hit and winner flips
+    within the reference's budgets."""
+    from raytracer_project_tpu_torch.ops import bvh
+
+    for row in rows:
+        log(f"  {name} leaf {row['leaf_size']} ({row['nodes']} nodes, "
+            f"{row['records']} records, depth {row['depth']}, built in "
+            f"{row['build_ms']:.1f} ms): {row['ms']:.4f} ms, visits "
+            f"{row['visits']:.2f}, pushes {row['pushes']:.2f}, culled pops "
+            f"{row['culled_pops']:.2f}, slots {row['slots']:.2f}, vs K1 "
+            f"{row['vs_k1']}")
+        diff = row["vs_k1"]
+        check(diff["t_bits_differ"] == 0
+              and diff["hit_flips"] <= max(2, n // 100)
+              and diff["winner_flips"] <= max(2, n // 40),
+              f"{name}: the walk at leaf size {row['leaf_size']} is not "
+              f"K1's: {diff}")
+    best = min(rows, key=lambda row: row["ms"])["leaf_size"]
+    log(f"  {name}: fastest leaf size {best}, the pool's "
+        f"{bvh.HIT_LEAF_SIZE}")
+    return rows
 
 
 def _baseline_configs():
@@ -2804,7 +2841,8 @@ def phase_bench_bvh() -> None:
     (within 1e-3) on at least 96.5% of the rays (the closest-hit budgets:
     1% hit flips, 2.5% winner flips); the fused pool's BVH kernel and K1's
     tile scan timed on the same rays, their hits within the same budgets
-    and t bit for bit where both chose the same primitive."""
+    and t bit for bit where both chose the same primitive; each case's walk
+    sweep (`log_walk_sweep`)."""
     from raytracer_project_tpu_torch.tools import bench_bvh
 
     log("bench_bvh:")
@@ -2822,6 +2860,8 @@ def phase_bench_bvh() -> None:
         check(diff["hit_flips"] <= n // 100 and diff["winner_flips"] <= n // 40
               and diff["t_bits_differ"] == 0,
               f"bench_bvh {row['scene']}: BVH kernel and K1 disagree")
+        log_walk_sweep(f"bench_bvh {row['primitives']} primitives",
+                       row["walks"], n)
 
 
 # --- phases 17-22: the unfused pool, pixel windows, sort_rays, processes,

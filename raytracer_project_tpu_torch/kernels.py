@@ -51,6 +51,7 @@ SIGNATURES = {
     "closest_hit_feats_dense": ("closest_hit", [_P, _I, _F]
                                 + [_P, _I, _P, _I] * 3 + [_P, _P, _P, _P]),
     "bvh_closest_hit": ("bvh_hit", [_P, _I, _F] + [_P] * 9),
+    "bvh_walk_counted": ("bvh_hit", [_P, _I, _F] + [_P] * 10),
     "decode_launch": ("decode", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                                  _I, _I, _I, _I, _F, _F, _I, _F, _F, _P, _P]),
     "shade_advance_launch": ("shade_advance",

@@ -16,8 +16,9 @@ use_native=False. The two SAH trees may differ in shape; every tree gives
 the same closest hits.
 
 `hit_bvh` hands a scene's tree to the fused pool's closest hit
-(ops/closest_hit.py): the tree on the scene's device and its node records
-packed for the kernel (csrc/bvh_hit.cu), built once per scene.
+(ops/closest_hit.py): on the card a tree with leaves of up to
+HIT_LEAF_SIZE, on the scene's device, and its two-box records packed for
+the kernel's ordered walk (csrc/bvh_hit.cu), built once per scene.
 """
 
 from __future__ import annotations
@@ -40,13 +41,20 @@ PAD = 1e-4
 # Large leaves: the lock-step traversal pays per node step, while a leaf's
 # primitive tests are one wide vectorized op.
 DEFAULT_LEAF_SIZE = 16
+# The card's tree (`hit_bvh`, `leaf_size_on`): each leaf slot the kernel
+# tests is a scattered compact-row load and one of K1's epilogues, so
+# leaves are small; tools/bench_bvh.py's leaf sweep on the funnel chose
+# the size.
+HIT_LEAF_SIZE = 4
 SAH_BINS = 16
-# The kernel's node records (csrc/bvh_hit.cu): a leaf's word is
-# (first slot << LEAF_SHIFT) | count, so a leaf holds at most LEAF_MAX
-# slots and a tree at most SLOT_MAX.
+# The kernel's records (csrc/bvh_hit.cu): a leaf's word is (first slot <<
+# LEAF_SHIFT) | count, so a leaf holds at most LEAF_MAX slots and a tree at
+# most SLOT_MAX; a walk's stack holds STACK_MAX entries, one per inner
+# level of its path at most (the kernel's BVH_STACK).
 LEAF_SHIFT = 8
 LEAF_MAX = (1 << LEAF_SHIFT) - 1
 SLOT_MAX = 1 << (31 - LEAF_SHIFT)
+STACK_MAX = 64
 # Each node box is widened by NODE_PAD plus NODE_PAD_REL of its largest
 # coordinate on each axis when packed for the kernel: more than the
 # rounding of the slab test and of the primitives' f32 bounds, so that no
@@ -387,12 +395,12 @@ def build_bvh(scene, leaf_size: int = DEFAULT_LEAF_SIZE, mode: str = "sah",
 class HitBVH(NamedTuple):
     """A scene's BVH for the fused pool's closest hit, on the scene's device.
 
-    tree      FlatBVH    the plain traversal's tables (ops/traverse.py)
-    nodes     f32[NN, 8] the kernel's records: min xyz, escape (int bits),
-                         max xyz, leaf word (int bits; 0 inner)
-    slots     i32[P]     (row << 2) | type of each leaf slot
-    build_ms  float      host milliseconds of the build (0.0 when the scene
-                         brought its own tree)
+    tree      FlatBVH     the plain traversal's tables (ops/traverse.py)
+    nodes     f32[NR, 16] the kernel's records (`kernel_records`), one per
+                          inner node (one for a tree of one leaf)
+    slots     i32[P]      (row << 2) | type of each leaf slot
+    build_ms  float       host milliseconds of the build (0.0 when the
+                          scene's own tree was taken)
     """
 
     tree: FlatBVH
@@ -410,40 +418,73 @@ class HitBVH(NamedTuple):
 
 
 def kernel_records(tree: FlatBVH) -> tuple[torch.Tensor, torch.Tensor]:
-    """(nodes f32[NN, 8], slots i32[P]) of csrc/bvh_hit.cu for `tree`, on
-    its device: each node's box widened by NODE_PAD + NODE_PAD_REL x its
-    largest coordinate, its escape and leaf word stored as the bits of
-    floats. Raises ValueError past the records' limits (LEAF_MAX slots in a
-    leaf, SLOT_MAX in the tree)."""
+    """(nodes f32[NR, 16], slots i32[P]) of csrc/bvh_hit.cu's ordered walk
+    for `tree`, on its device. Record r is the r-th inner node in depth-
+    first order (the root's is 0): its left child (node i + 1) and right
+    child (escape[i + 1]) as (left min xyz, left ref, left max xyz, right
+    ref, right min xyz, 0, right max xyz, 0), each box widened by NODE_PAD
+    + NODE_PAD_REL x its largest coordinate, a ref the child's record or
+    ~(its leaf word (first slot << LEAF_SHIFT) | count), stored as the bits
+    of a float. A tree of one leaf gets one record: the leaf, and an empty
+    leaf (ref ~0) beside it. Each slot is (row << 2) | type. Raises
+    ValueError past the records' limits (LEAF_MAX slots in a leaf,
+    SLOT_MAX in the tree) or for a tree deeper than the walk's stack
+    (STACK_MAX inner levels)."""
     n_slots = int(tree.prim_type.shape[0])
     if int(tree.count.max()) > LEAF_MAX or n_slots > SLOT_MAX:
         raise ValueError(f"a BVH of {n_slots} slots with leaves of up to "
                          f"{int(tree.count.max())}: the kernel's records hold "
                          f"{SLOT_MAX} slots, {LEAF_MAX} a leaf")
+    depth = max(int(tree.n_levels), int(tree.node_level.max()) + 1)
+    if depth - 1 > STACK_MAX:
+        raise ValueError(f"a BVH of depth {depth}: the walk's stack holds "
+                         f"{STACK_MAX} inner levels")
     lo, hi = tree.node_min.float(), tree.node_max.float()
     pad = NODE_PAD + NODE_PAD_REL * torch.maximum(lo.abs(), hi.abs())
-    word = torch.where(tree.count > 0,
-                       tree.first * (1 << LEAF_SHIFT) + tree.count, 0)
-    bits = lambda x: x.to(torch.int32).contiguous().view(torch.float32)
-    nodes = torch.cat([lo - pad, bits(tree.escape)[:, None], hi + pad,
-                       bits(word)[:, None]], dim=1).contiguous()
+    lo, hi = lo - pad, hi + pad
+    word = (tree.first * (1 << LEAF_SHIFT) + tree.count).to(torch.int32)
+    inner = tree.count == 0
+    rec = torch.cumsum(inner.to(torch.int32), 0) - 1
+    ref = torch.where(inner, rec, ~word)
+    at = torch.nonzero(inner)[:, 0]
+    if at.numel():
+        left = at + 1
+        right = tree.escape[left].long()
+        rref = ref[right]
+    else:
+        left = right = torch.zeros(1, dtype=torch.long, device=lo.device)
+        rref = torch.full((1,), -1, dtype=torch.int32, device=lo.device)
+    bits = lambda x: x.to(torch.int32).contiguous().view(torch.float32)[:, None]
+    zero = torch.zeros_like(lo[right, :1])
+    nodes = torch.cat([lo[left], bits(ref[left]), hi[left], bits(rref),
+                       lo[right], zero, hi[right], zero], dim=1).contiguous()
     slots = (tree.prim_row.to(torch.int32) * 4
              + tree.prim_type.to(torch.int32)).contiguous()
     return nodes, slots
 
 
+def leaf_size_on(device) -> int:
+    """The most primitives a leaf of the closest hit's tree holds on
+    `device`: HIT_LEAF_SIZE for the card's kernel, DEFAULT_LEAF_SIZE for the
+    plain traversal off the card."""
+    on_card = torch.device(device).type == "cuda"
+    return HIT_LEAF_SIZE if on_card else DEFAULT_LEAF_SIZE
+
+
 def hit_bvh(scene) -> HitBVH:
     """The scene's BVH for the closest hit, on the scene's device: the
-    scene's own tree when it has one, else a new build (`build_bvh`,
-    inside the span `bvh.build`), with its kernel records. Build once per
-    scene (fused_step.build_tables, under the pool's DerivedCache);
+    scene's own tree when its leaves hold at most `leaf_size_on` the device,
+    else a new build at that leaf size (`build_bvh`, inside the span
+    `bvh.build`), with its kernel records. Build once per scene
+    (fused_step.build_tables, under the pool's DerivedCache);
     `hit_bvh.builds` counts the trees built."""
     dev = scene.spheres.center.device
+    leaf = leaf_size_on(dev)
     tree, build_ms = scene.bvh, 0.0
-    if tree is None:
+    if tree is None or tree.leaf_size > leaf:
         with spans.span("bvh.build"):
             t0 = time.perf_counter()
-            tree = build_bvh(scene).to(dev)
+            tree = build_bvh(scene, leaf_size=leaf).to(dev)
             build_ms = 1e3 * (time.perf_counter() - t0)
         kernels.count(hit_bvh, "builds")
     nodes, slots = kernel_records(tree)

@@ -8,9 +8,11 @@
     as f32[16, N] rows (intersect.ray_feature_rows);
   * `bvh_closest_hit`, which `closest_hit` takes for tables that carry a
     BVH (the fused pool's, from intersect.BVH_MIN_PRIMS primitives on):
-    the threaded tree walked per ray (csrc/bvh_hit.cu; plain version
-    ops/traverse.py intersect_flat), each leaf slot tested with K1's dots
-    and epilogues on K1's compact rows, so it returns K1's answer.
+    the tree walked per ray near child first (csrc/bvh_hit.cu; plain
+    version ops/traverse.py intersect_flat), each leaf slot tested with
+    K1's dots and epilogues on K1's compact rows, so it returns K1's
+    answer; `bvh_walk_counted` runs the same walk with its counts, for the
+    tools.
 
 For every ray (o, d) the 16 ray features [d, o, o x d, o.d, |o|^2, 1,
 |d|^2, 0, 0, 0] are formed, and the sphere, triangle and box coefficient
@@ -279,36 +281,58 @@ def bvh_closest_hit_plain(od, tmin: float, bvh):
     return hit.t, hit.prim_idx, hit.prim_type
 
 
-def bvh_closest_hit(od, tmin: float, tables: ScanTables):
-    """The closest hit of the rays od f32[6, P] over the tree tables.bvh.
-
-    On CPU tensors this is `bvh_closest_hit_plain`; on CUDA tensors it
-    launches csrc/bvh_hit.cu's bvh_closest_hit, which tests each leaf slot
-    with K1's dots and epilogues on the compact rows, so that a primitive
-    it shares with K1's answer has K1's t bit for bit, and breaks ties on t
-    as K1 does; each launch counts on `closest_hit.launches` and
-    `closest_hit.bvh_launches`. Returns (t f32[P], idx i32[P], type
-    i32[P])."""
+def _walk(entry, od, tmin: float, tables: ScanTables, *counts):
+    """One launch of csrc/bvh_hit.cu's `entry` over tables.bvh's records and
+    slots, after checking what the kernel assumes; `counts`: i32[4, P] for
+    the counting walk, else nothing."""
     bvh = tables.bvh
-    if od.device.type == "cpu":
-        return bvh_closest_hit_plain(od, tmin, bvh)
     kernels.require_cuda(od, bvh.nodes, *tables.rows, dtype=torch.float32)
     kernels.require_cuda(od, bvh.slots)
     if bvh.slots.dtype != torch.int32:
         raise ValueError(f"leaf slots of {bvh.slots.dtype}, expected int32")
     _check_rows(od, tables)
-    if (bvh.nodes.shape != (bvh.node_count, 8) or bvh.nodes.data_ptr() % 16
-            or od.shape[0] != 6):
-        raise ValueError(f"node records {tuple(bvh.nodes.shape)} and rays "
-                         f"{tuple(od.shape)}: expected ({bvh.node_count}, 8) "
-                         f"on a 16-byte boundary and [6, P]")
+    nodes = bvh.nodes
+    if (nodes.dim() != 2 or nodes.shape[0] < 1 or nodes.shape[1] != 16
+            or nodes.data_ptr() % 16 or od.shape[0] != 6):
+        raise ValueError(f"node records {tuple(nodes.shape)} and rays "
+                         f"{tuple(od.shape)}: expected (NR >= 1, 16) on a "
+                         f"16-byte boundary and [6, P]")
     n = od.shape[1]
     out = _outputs(od, n)
-    kernels.launch("bvh_closest_hit", od, n, tmin, bvh.nodes, bvh.slots,
-                   *tables.rows, *out)
+    kernels.launch(entry, od, n, tmin, nodes, bvh.slots, *tables.rows, *out,
+                   *counts)
+    return out
+
+
+def bvh_closest_hit(od, tmin: float, tables: ScanTables):
+    """The closest hit of the rays od f32[6, P] over the tree tables.bvh.
+
+    On CPU tensors this is `bvh_closest_hit_plain`; on CUDA tensors it
+    launches csrc/bvh_hit.cu's bvh_closest_hit, the walk near child first
+    over the two-box records (ops/bvh.py kernel_records), which tests each
+    leaf slot with K1's dots and epilogues on the compact rows, so that a
+    primitive it shares with K1's answer has K1's t bit for bit, and breaks
+    ties on t as K1 does; each launch counts on `closest_hit.launches` and
+    `closest_hit.bvh_launches`. Returns (t f32[P], idx i32[P], type
+    i32[P])."""
+    bvh = tables.bvh
+    if od.device.type == "cpu":
+        return bvh_closest_hit_plain(od, tmin, bvh)
+    out = _walk("bvh_closest_hit", od, tmin, tables)
     kernels.count(closest_hit)
     kernels.count(closest_hit, "bvh_launches")
     return out
+
+
+def bvh_walk_counted(od, tmin: float, tables: ScanTables):
+    """`bvh_closest_hit`'s walk, counting (csrc/bvh_hit.cu
+    counted_walk_kernel; CUDA tensors only), for the tools: no render path
+    runs it, and it counts no launch. Returns (t, idx, type, counts
+    i32[4, P]): per ray the records visited, the pushes, the pops culled by
+    best t and the slots tested."""
+    counts = torch.empty((4, od.shape[1]), dtype=torch.int32,
+                         device=od.device)
+    return (*_walk("bvh_walk_counted", od, tmin, tables, counts), counts)
 
 
 def closest_hit_feats(feats, tmin: float, tables: ScanTables):

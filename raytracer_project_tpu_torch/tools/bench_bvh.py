@@ -3,13 +3,15 @@ threaded-BVH traversal (ops/traverse.py, torch ops) against K4, the
 compact-row closest-hit kernel (ops/closest_hit.py, through
 intersect.intersect), on the same rays; and the fused pool's two closest
 hits, K1's tile scan and the BVH kernel (closest_hit.bvh_closest_hit,
-csrc/bvh_hit.cu), whose times give the crossover of BVH_MIN_PRIMS.
+csrc/bvh_hit.cu) over the tree the pool builds, whose times give the
+crossover of BVH_MIN_PRIMS; and the BVH kernel's walk over trees of each
+leaf size (`walk_sweep`).
 
     python -m raytracer_project_tpu_torch.tools.bench_bvh [--device cpu]
 
 Cases: the reference tool's (the showcase at grids 8, 15, 30 and 45, and
 the sphere funnel at 8,192 spheres with mesh_detail 2 and at 16,384 with
-4), and the funnel at 65,536 spheres with mesh_detail 6 (116,226
+4), and the funnel at 65,536 spheres with mesh_detail 6 (116,227
 primitives). Rays: 262,144 mixed, half the camera rays of the scene's bench
 camera (bench.py's showcase or funnel camera, 512x256, seed 0) and half one
 diffuse-or-specular scatter of them (shade.scatter at their first hits;
@@ -19,7 +21,11 @@ per case, with the fraction of rays on which the traversal and K4 agree
 (same hit flag, |dt| < 1e-3), the traversal's steps, the native SAH
 build's milliseconds and, on the card, the lanes on which the BVH kernel
 and K1 differ (hit, winner, or t in its bits where both chose the same
-primitive).
+primitive) and the walk sweep: for each leaf size of LEAF_SIZES the BVH
+kernel's walk, timed by CUDA events (ms a launch), with its mean counts
+per ray (records visited, pushes, pops culled by best t, slots tested)
+and its lanes off K1's. ops/bvh.py HIT_LEAF_SIZE is the leaf size whose
+walk was fastest on the funnel.
 """
 
 from __future__ import annotations
@@ -38,6 +44,10 @@ CASES = ([("showcase", dict(grid=g, with_bvh=True, with_meshes=True))
          + [("funnel", dict(n_spheres=8192, mesh_detail=2)),
             ("funnel", dict(n_spheres=16384, mesh_detail=4)),
             ("funnel", dict(n_spheres=65536, mesh_detail=6))])
+LEAF_SIZES = (2, 4, 8, 16)
+# The device sleep ahead of a timed run of launches (chip_smoke.py's), so
+# that the host queues them all before the first one starts.
+SLEEP_CYCLES = 200_000_000
 
 
 def mixed_rays(scene, kind: str, n: int, device):
@@ -109,10 +119,22 @@ def measure(scene, o, d, device, tmin: float = 1e-3) -> dict:
     return row
 
 
+def _differ(a, b) -> dict:
+    """The lanes on which two closest hits (t, idx, type) differ: a hit
+    flag, the winner where both hit, or t in its bits where both chose the
+    same primitive."""
+    hit_a, hit_b = a[0] < 1e30, b[0] < 1e30
+    same = hit_a & hit_b & (a[1] == b[1]) & (a[2] == b[2])
+    bits = a[0].view(torch.int32) != b[0].view(torch.int32)
+    return {"hit_flips": int((hit_a != hit_b).sum()),
+            "winner_flips": int((hit_a & hit_b & ~same).sum()),
+            "t_bits_differ": int((same & bits).sum())}
+
+
 def pool_closest_hits(scene, o, d, tables, device, tmin: float) -> dict:
     """The fused pool's closest hit on the rays o, d, timed: K1's tile scan
-    and the BVH kernel over the scene's own tree (CUDA only), and the lanes
-    on which their answers differ."""
+    and the BVH kernel over the tree the pool builds (CUDA only), and the
+    lanes on which their answers differ."""
     from ..ops import bvh, closest_hit
 
     od = torch.cat([o.T, d.T]).contiguous()
@@ -121,16 +143,60 @@ def pool_closest_hits(scene, o, d, tables, device, tmin: float) -> dict:
                          device)
     t_bk, h_bk = _best_s(lambda: closest_hit.closest_hit(od, tmin, with_tree),
                          device)
-    hit_a, hit_b = h_k1[0] < 1e30, h_bk[0] < 1e30
-    same = hit_a & hit_b & (h_k1[1] == h_bk[1]) & (h_k1[2] == h_bk[2])
-    bits = h_k1[0].view(torch.int32) != h_bk[0].view(torch.int32)
     n = od.shape[1]
     return {"k1_ms": t_k1 * 1e3, "bvh_kernel_ms": t_bk * 1e3,
             "bvh_kernel_mrays_s": n / t_bk / 1e6,
-            "k1_vs_bvh_kernel": {"hit_flips": int((hit_a != hit_b).sum()),
-                                 "winner_flips": int((hit_a & hit_b
-                                                      & ~same).sum()),
-                                 "t_bits_differ": int((same & bits).sum())}}
+            "k1_vs_bvh_kernel": _differ(h_k1, h_bk),
+            "walks": walk_sweep(scene, od, tables, tmin)}
+
+
+def event_ms(fn, n: int = 20, rounds: int = 5) -> float:
+    """Card ms per call of `fn`: `n` calls back to back between CUDA
+    events, behind a device sleep; the median over `rounds`, after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return sorted(times)[len(times) // 2]
+
+
+def walk_sweep(scene, od, tables, tmin: float = 1e-3,
+               sizes=LEAF_SIZES) -> list:
+    """The BVH kernel's walk on the rays od f32[6, P] (CUDA only) over the
+    scene's native SAH tree at each leaf size of `sizes`: its ms a launch
+    (`event_ms`), its mean counts per ray (`closest_hit.bvh_walk_counted`)
+    and its lanes off K1's tile scan (`_differ`); one dict per leaf size,
+    with the tree's nodes, records, depth and build ms."""
+    from ..ops import bvh, closest_hit
+
+    k1 = closest_hit.closest_hit(od, tmin, tables._replace(bvh=None))
+    rows = []
+    for leaf in sizes:
+        t0 = time.perf_counter()
+        tree = bvh.build_bvh(scene, leaf_size=leaf)
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        tree = tree.to(od.device)
+        nodes, slots = bvh.kernel_records(tree)
+        tab = tables._replace(bvh=bvh.HitBVH(tree=tree, nodes=nodes,
+                                             slots=slots, build_ms=build_ms))
+        ms = event_ms(lambda: closest_hit.bvh_closest_hit(od, tmin, tab))
+        *hit, counts = closest_hit.bvh_walk_counted(od, tmin, tab)
+        mean = counts.double().mean(dim=1).tolist()
+        rows.append({"leaf_size": leaf, "nodes": tree.node_count,
+                     "records": int(nodes.shape[0]), "depth": tree.n_levels,
+                     "build_ms": build_ms, "ms": ms, "visits": mean[0],
+                     "pushes": mean[1], "culled_pops": mean[2],
+                     "slots": mean[3], "vs_k1": _differ(k1, hit)})
+    return rows
 
 
 def main(device: str = "cuda", n_rays: int = N_RAYS, cases=CASES) -> list:

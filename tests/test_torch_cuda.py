@@ -1360,19 +1360,22 @@ def _subtree(event) -> list:
 
 # --- the fused pool's closest hit over the BVH (csrc/bvh_hit.cu) -----------
 
-def _bvh_funnel_rays(cuda, n=131_072):
-    """The funnel (25,090 primitives) with its pool tables (BVH attached) on
-    the card, and n bounce lanes: one scatter of the 800x450 funnel camera's
-    rays at their first hits, and what each lane left (index, type, hit)."""
+def _bvh_funnel_rays(cuda, n=131_072, n_spheres=8192, mesh_detail=2,
+                     step=1):
+    """The funnel (25,090 primitives; or n_spheres and mesh_detail tori)
+    with its pool tables (BVH attached) on the card, and n bounce lanes:
+    one scatter of the 800x450 funnel camera's rays (every step-th pixel)
+    at their first hits, and what each lane left (index, type, hit)."""
     from raytracer_project_tpu_torch.ops import shade
 
-    scene = presets.bvh_stress_scene(n_spheres=8192, mesh_detail=2,
+    scene = presets.bvh_stress_scene(n_spheres=n_spheres,
+                                     mesh_detail=mesh_detail,
                                      with_bvh=False).to(cuda)
     scan = fs.build_tables(scene, tenv.make_environment(**ENV_KW).to(cuda),
                            tenv.PHYSICAL_SUN).scan
     cam = tcam.make_camera(image_width=800, image_height=450,
                            **FUNNEL_CAM).to(cuda)
-    pix = torch.arange(800 * 450, device=cuda)[:n]
+    pix = torch.arange(800 * 450, device=cuda)[::step][:n]
     lr = rng.lane_rng(rng.seed_from_int(0), pix, 0).with_ctx(0, 0)
     o, d = tcam.generate_rays(cam, lr, pix, 800)
     first = intersect.intersect(scene, o, d, 1e-3, intersect.hit_tables(scene))
@@ -1469,6 +1472,26 @@ def _grazing(scene, o, d, t, idx, typ):
     return (t < 1e30) & (dt > 5e-2 * t64)
 
 
+def _against_plain(scene, od, tb, ib, yb, tp, ip, yp, near):
+    """The BVH kernel against its plain traversal under the reference's
+    budgets: hit flips <= 1%, winner flips <= 2.5%, same-winner t over
+    5e-3 relative on at most 3%, none over 5e-2 but on the lanes `near`
+    or those met so nearly tangentially that f32 cannot resolve t
+    (`_grazing`)."""
+    n = od.shape[1]
+    hb, hp = tb < 1e30, tp < 1e30
+    assert int(hb.sum()) > n // 10
+    assert int((hb != hp).sum()) <= n // 100
+    both = hb & hp
+    same = both & (ib == ip) & (yb == yp)
+    assert int((both & ~same).sum()) <= n // 40
+    near = (near | (torch.minimum(tb, tp) < 0.02)
+            | _grazing(scene, od[:3].T, od[3:].T, tb, ib, yb))
+    rel = (tb - tp).abs() / tp.abs().clamp(min=1e-3)
+    assert float((rel[same] > 5e-3).float().mean()) <= 0.03
+    assert float(rel[same & ~near].max()) <= 5e-2
+
+
 @pytest.mark.cuda
 def test_bvh_kernel_matches_its_plain_traversal(cuda):
     """The kernel against its plain version (the threaded traversal of
@@ -1481,19 +1504,63 @@ def test_bvh_kernel_matches_its_plain_traversal(cuda):
     scene, scan, od, left = _bvh_funnel_rays(cuda, n=65_536)
     tb, ib, yb = k1.bvh_closest_hit(od, 1e-3, scan)
     tp, ip, yp = k1.bvh_closest_hit_plain(od, 1e-3, scan.bvh)
-    n = od.shape[1]
-    hb, hp = tb < 1e30, tp < 1e30
-    assert int(hb.sum()) > n // 10
-    assert int((hb != hp).sum()) <= n // 100
-    both = hb & hp
-    same = both & (ib == ip) & (yb == yp)
-    assert int((both & ~same).sum()) <= n // 40
-    near = ((left[2] & (ib == left[0]) & (yb == left[1]))
-            | (torch.minimum(tb, tp) < 0.02)
-            | _grazing(scene, od[:3].T, od[3:].T, tb, ib, yb))
-    rel = (tb - tp).abs() / tp.abs().clamp(min=1e-3)
-    assert float((rel[same] > 5e-3).float().mean()) <= 0.03
-    assert float(rel[same & ~near].max()) <= 5e-2
+    _against_plain(scene, od, tb, ib, yb, tp, ip, yp,
+                   left[2] & (ib == left[0]) & (yb == left[1]))
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_on_bench_bvhs_largest_scene(cuda):
+    """tools/bench_bvh.py's largest case, the funnel of 65,536 spheres and
+    six tori (116,227 primitives, a deeper tree than the pool's funnel), on
+    8,192 bounce lanes spread over the 800x450 frame: the kernel against
+    its plain traversal under the reference's budgets (`_against_plain`),
+    and against K1's tile scan, t bit for bit where both chose the same
+    primitive."""
+    scene, scan, od, left = _bvh_funnel_rays(
+        cuda, n=8192, n_spheres=65536, mesh_detail=6, step=800 * 450 // 8192)
+    assert scene.primitive_count == 116_227 and od.shape[1] == 8192
+    tb, ib, yb = k1.closest_hit(od, 1e-3, scan)
+    tp, ip, yp = k1.bvh_closest_hit_plain(od, 1e-3, scan.bvh)
+    _against_plain(scene, od, tb, ib, yb, tp, ip, yp,
+                   left[2] & (ib == left[0]) & (yb == left[1]))
+    tk, ik, yk = k1.closest_hit(od, 1e-3, scan._replace(bvh=None))
+    hits, flips, winner = _against_k1(tb, ib, yb, tk, ik, yk, od.shape[1])
+    print(f"116,227 primitives, depth {scan.bvh.depth}, {scan.bvh.node_count} "
+          f"nodes, lanes {od.shape[1]}: hits {hits}, hit flips {flips}, "
+          f"winner flips {winner}")
+
+
+@pytest.mark.cuda
+def test_bvh_walks_count_and_answer_as_the_pools(cuda):
+    """On 16,384 of the funnel's bounce lanes the counting walk returns the
+    pool's answer bit for bit, and its launch is not counted; the counts
+    are the walk's own: every ray visits the root's record and fewer
+    records than the tree holds, no ray culls more pops than it pushed, the
+    walk pushes and culls, and a ray tests at most two leaves a visit. The
+    tree is the card's (leaves of up to HIT_LEAF_SIZE), also for a scene
+    built with its own leaf-16 tree."""
+    from raytracer_project_tpu_torch.ops import bvh as tbvh
+
+    _, scan, od, _ = _bvh_funnel_rays(cuda, n=16_384)
+    leaf = scan.bvh.tree.leaf_size
+    assert leaf <= tbvh.HIT_LEAF_SIZE
+    pool = k1.bvh_closest_hit(od, 1e-3, scan)
+    launches = k1.closest_hit.launches
+    *counted, c = k1.bvh_walk_counted(od, 1e-3, scan)
+    assert k1.closest_hit.launches == launches
+    for a, b in zip(pool, counted):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert c.shape == (4, od.shape[1])
+    assert bool((c[0] >= 1).all())
+    assert bool((c[0] < scan.bvh.nodes.shape[0]).all())
+    assert bool((c[2] <= c[1]).all())
+    assert int(c[1].sum()) > 0 and int(c[2].sum()) > 0
+    assert bool((c[3] <= 2 * leaf * c[0]).all())
+    print(f"per ray: {c.double().mean(1).tolist()}")
+
+    own = presets.bvh_stress_scene(n_spheres=512, mesh_detail=1).to(cuda)
+    assert own.bvh.leaf_size > tbvh.HIT_LEAF_SIZE
+    assert tbvh.hit_bvh(own).tree.leaf_size <= tbvh.HIT_LEAF_SIZE
 
 
 @pytest.mark.cuda
