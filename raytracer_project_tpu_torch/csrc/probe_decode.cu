@@ -24,15 +24,10 @@
 // reads three entries of the row at a run-time offset (the dominant axis);
 // handed a register array it would make the compiler copy the whole row to
 // a stack frame in every lane, so a box lane passes it the row in the
-// table instead. The record calls are K2's, built with --fmad=false, so
-// every row is bit for bit the yardstick's. The lanes are not binned by
-// primitive type: on the H100 the yardstick ran as fast on the probe's
-// hits in pool order as on the same hits sorted by type.
-//
-// Entry probe_decode_stage_scalar, decode_stage_kernel<STAGE>: the first
-// port's kernel, kept as the yardstick. It loads the row as 28 scalar
-// loads into an array that the box record indexes at run time, a 112 B
-// stack frame that every lane of d1 and d2 writes.
+// table instead. The record calls are K2's, built with --fmad=false. The
+// lanes are not binned by primitive type: on the H100 the first port's
+// stage kernel ran as fast on the probe's hits in pool order as on the
+// same hits sorted by type.
 
 #include "decode.cuh"
 
@@ -107,97 +102,6 @@ stage_kernel(const float* __restrict__ od, const float* __restrict__ best_t,
   }
 #pragma unroll
   for (int k = 0; k < 24; ++k) out[k * p + i] = vals[k];
-}
-
-template <int STAGE>
-__global__ void decode_stage_kernel(const float* __restrict__ od,
-                                    const float* __restrict__ best_t,
-                                    const int* __restrict__ best_idx,
-                                    const int* __restrict__ best_type, int p,
-                                    const float* __restrict__ rectab, int n_rec,
-                                    const float* __restrict__ mattab, int n_mat,
-                                    const float* __restrict__ texmeta, int n_tex,
-                                    int n_spheres, int n_tris, int has_boxes,
-                                    float* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  float t = best_t[i];
-  int type = best_type[i];
-  bool hit = t < T_MAX_F;
-  int base = type == 1 ? n_spheres : (type == 2 ? n_spheres + n_tris : 0);
-  int row = min(max(best_idx[i] + base, 0), n_rec - 1);
-  float g[PACK_COLS];
-#pragma unroll
-  for (int k = 0; k < PACK_COLS; ++k) g[k] = __ldg(rectab + row * PACK_COLS + k);
-
-  float vals[24];
-  vals[0] = hit ? 1.0f : 0.0f;
-  vals[1] = t;
-  if constexpr (STAGE == 0) {
-#pragma unroll
-    for (int k = 0; k < 22; ++k) vals[2 + k] = g[k];
-  } else {
-    V3 o = v3(od[i], od[p + i], od[2 * p + i]);
-    V3 d = v3(od[3 * p + i], od[4 * p + i], od[5 * p + i]);
-    float t_safe = hit ? t : 1.0f;
-    Record r;
-    if (type == 1) {
-      r = triangle_record(g, o, d, t_safe);
-    } else if (type == 2 && has_boxes) {
-      r = box_record(g, o, d, t_safe);
-    } else {
-      r = sphere_record(g, o, d, t_safe);
-    }
-    float rec[13] = {r.normal.x, r.normal.y, r.normal.z,
-                     r.tangent.x, r.tangent.y, r.tangent.z,
-                     r.bitangent.x, r.bitangent.y, r.bitangent.z,
-                     r.front ? 1.0f : 0.0f, r.u, r.v, r.mat};
-#pragma unroll
-    for (int k = 0; k < 13; ++k) vals[2 + k] = rec[k];
-    if constexpr (STAGE == 1) {
-#pragma unroll
-      for (int k = 0; k < 9; ++k) vals[15 + k] = g[k];
-    } else {
-      const float* mrow = mattab + 8 * row_index(r.mat, n_mat);
-      float tex_id = __ldg(mrow + 5);
-      const float* tmeta = texmeta + 10 * row_index(tex_id, n_tex);
-      float tail[9] = {__ldg(mrow), __ldg(mrow + 3), __ldg(mrow + 4),
-                       __ldg(tmeta), __ldg(tmeta + 1), __ldg(tmeta + 2),
-                       __ldg(tmeta + 3), tex_id, __ldg(mrow + 6)};
-#pragma unroll
-      for (int k = 0; k < 9; ++k) vals[15 + k] = tail[k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 24; ++k) out[k * p + i] = vals[k];
-}
-
-extern "C" int probe_decode_stage_scalar(int stage, const void* od,
-                                         const void* t, const void* idx,
-                                         const void* type, int p,
-                                         const void* rectab, int n_rec,
-                                         const void* mattab, int n_mat,
-                                         const void* texmeta, int n_tex,
-                                         int n_spheres, int n_tris,
-                                         int has_boxes, void* out,
-                                         void* stream) {
-  const int block = 256;
-  int grid = (p + block - 1) / block;
-  if (grid == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-#define STAGE_LAUNCH(S)                                                        \
-  decode_stage_kernel<S><<<grid, block, 0, s>>>(                               \
-      (const float*)od, (const float*)t, (const int*)idx, (const int*)type, p, \
-      (const float*)rectab, n_rec, (const float*)mattab, n_mat,                \
-      (const float*)texmeta, n_tex, n_spheres, n_tris, has_boxes, (float*)out)
-  switch (stage) {
-    case 0: STAGE_LAUNCH(0); break;
-    case 1: STAGE_LAUNCH(1); break;
-    case 2: STAGE_LAUNCH(2); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef STAGE_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 extern "C" int probe_decode_stage(int stage, const void* od, const void* t,

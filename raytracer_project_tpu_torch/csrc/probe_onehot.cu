@@ -35,11 +35,6 @@
 // enough (STAGE_GATHERS). A bulk copy by the Tensor Memory Accelerator, one
 // thread issuing 16 KB pieces on one barrier, was slower; streaming stores
 // changed nothing measurable. The wrapper takes the table 16 B aligned.
-//
-// Entry probe_onehot_scalar, onehot_kernel<PLAIN, TRANSPOSED, MATRIX>: the
-// first port's kernel, kept as the yardstick. Its loop over k < n_out is
-// not unrolled, so a lane runs n_out rounds of one scalar table load and
-// one store through a pointer picked at a runtime index.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -141,39 +136,6 @@ fetch_kernel(const float* __restrict__ t, const float* __restrict__ idx,
   }
 }
 
-template <bool PLAIN, bool TRANSPOSED, bool MATRIX>
-__global__ void onehot_kernel(const float* __restrict__ t,
-                              const float* __restrict__ idx,
-                              const float* __restrict__ table, int n_rows,
-                              int n_out, OutPtrs outs,
-                              float* __restrict__ out_mat, int p) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  float ti = t[i];
-  int row = 0;
-  bool in_table = false;
-  if constexpr (!PLAIN) {
-    row = (int)idx[i];  // truncation toward zero, as astype(int32)
-    in_table = row >= 0 && row < n_rows;
-  }
-  for (int k = 0; k < n_out; ++k) {
-    float v;
-    if constexpr (PLAIN) {
-      v = ti + (float)k;
-    } else {
-      int c = k % COLS;
-      float g = 0.0f;
-      if (in_table) g = __ldg(TRANSPOSED ? table + c * n_rows + row : table + row * COLS + c);
-      v = g + ti;
-    }
-    if constexpr (MATRIX) {
-      out_mat[(size_t)k * p + i] = v;
-    } else {
-      outs.p[k][i] = v;
-    }
-  }
-}
-
 static int out_ptrs(int matrix, int n_out, const void* ptrs, OutPtrs* outs) {
   if (n_out < 0 || n_out > MAX_OUT) return (int)cudaErrorInvalidValue;
   *outs = OutPtrs{};
@@ -254,34 +216,4 @@ extern "C" int probe_onehot(int plain, int transposed, int matrix, int staged,
     default: return (int)cudaErrorInvalidValue;  // PLAIN has no table to stage
   }
 #undef FETCH_LAUNCH
-}
-
-extern "C" int probe_onehot_scalar(int plain, int transposed, int matrix,
-                                   const void* t, const void* idx,
-                                   const void* table, int n_rows, int n_out,
-                                   const void* out_ptrs_, void* out_mat, int p,
-                                   void* stream) {
-  OutPtrs outs;
-  int err = out_ptrs(matrix, n_out, out_ptrs_, &outs);
-  if (err) return err;
-  const int block = 256;
-  int grid = (p + block - 1) / block;
-  if (grid == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  int flags = (plain ? 4 : 0) | (transposed ? 2 : 0) | (matrix ? 1 : 0);
-#define ONEHOT_LAUNCH(P, T, M)                                               \
-  onehot_kernel<P, T, M><<<grid, block, 0, s>>>(                             \
-      (const float*)t, (const float*)idx, (const float*)table, n_rows, n_out, \
-      outs, (float*)out_mat, p)
-  switch (flags) {
-    case 0: ONEHOT_LAUNCH(false, false, false); break;
-    case 1: ONEHOT_LAUNCH(false, false, true); break;
-    case 2: ONEHOT_LAUNCH(false, true, false); break;
-    case 3: ONEHOT_LAUNCH(false, true, true); break;
-    case 4: ONEHOT_LAUNCH(true, false, false); break;
-    case 5: ONEHOT_LAUNCH(true, false, true); break;
-    default: return (int)cudaErrorInvalidValue;  // PLAIN ignores the table
-  }
-#undef ONEHOT_LAUNCH
-  return (int)cudaGetLastError();
 }

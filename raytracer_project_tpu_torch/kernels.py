@@ -69,18 +69,11 @@ SIGNATURES = {
                           + [_P] * 7),
     "probe_a1_ablate": ("probe_a1_ablate", [_I, _P, _I, _F] + [_P, _P, _I] * 3
                         + [_I, _P, _P, _P, _P]),
-    "probe_a1_ablate_dense": ("probe_a1_ablate", [_I, _P, _I, _F]
-                              + [_P, _I, _P, _I] * 3 + [_I, _P, _P, _P, _P]),
     "probe_onehot": ("probe_onehot", [_I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
                                       _P, _I, _P]),
-    "probe_onehot_scalar": ("probe_onehot", [_I, _I, _I, _P, _P, _P, _I, _I,
-                                             _P, _P, _I, _P]),
     "launch_floor": ("launch_floor", [_I, _P]),
     "probe_decode_stage": ("probe_decode", [_I, _P, _P, _P, _P, _I, _P, _I, _P,
                                             _I, _P, _I, _I, _I, _I, _P, _P]),
-    "probe_decode_stage_scalar": ("probe_decode",
-                                  [_I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P,
-                                   _I, _I, _I, _I, _P, _P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

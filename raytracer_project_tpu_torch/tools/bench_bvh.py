@@ -22,9 +22,9 @@ per case, with the fraction of rays on which the traversal and K4 agree
 build's milliseconds and, on the card, the lanes on which the BVH kernel
 and K1 differ (hit, winner, or t in its bits where both chose the same
 primitive) and the walk sweep: for each leaf size of LEAF_SIZES the BVH
-kernel's walk, timed by CUDA events (ms a launch), with its mean counts
-per ray (records visited, pushes, pops culled by best t, slots tested)
-and its lanes off K1's. ops/bvh.py HIT_LEAF_SIZE is the leaf size whose
+kernel's walk, timed on the card by `tools.time_ms` (ms a launch), with
+its mean counts per ray (records visited, pushes, pops culled by best t,
+slots tested) and its lanes off K1's. ops/bvh.py HIT_LEAF_SIZE is the leaf size whose
 walk was fastest on the funnel.
 """
 
@@ -35,7 +35,7 @@ import time
 
 import torch
 
-from . import arg_parser
+from . import arg_parser, time_ms
 
 N_RAYS = 262_144
 REPS = 3
@@ -45,9 +45,6 @@ CASES = ([("showcase", dict(grid=g, with_bvh=True, with_meshes=True))
             ("funnel", dict(n_spheres=16384, mesh_detail=4)),
             ("funnel", dict(n_spheres=65536, mesh_detail=6))])
 LEAF_SIZES = (2, 4, 8, 16)
-# The device sleep ahead of a timed run of launches (chip_smoke.py's), so
-# that the host queues them all before the first one starts.
-SLEEP_CYCLES = 200_000_000
 
 
 def mixed_rays(scene, kind: str, n: int, device):
@@ -150,30 +147,11 @@ def pool_closest_hits(scene, o, d, tables, device, tmin: float) -> dict:
             "walks": walk_sweep(scene, od, tables, tmin)}
 
 
-def event_ms(fn, n: int = 20, rounds: int = 5) -> float:
-    """Card ms per call of `fn`: `n` calls back to back between CUDA
-    events, behind a device sleep; the median over `rounds`, after a
-    warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return sorted(times)[len(times) // 2]
-
-
 def walk_sweep(scene, od, tables, tmin: float = 1e-3,
                sizes=LEAF_SIZES) -> list:
     """The BVH kernel's walk on the rays od f32[6, P] (CUDA only) over the
     scene's native SAH tree at each leaf size of `sizes`: its ms a launch
-    (`event_ms`), its mean counts per ray (`closest_hit.bvh_walk_counted`)
+    (`tools.time_ms`), its mean counts per ray (`closest_hit.bvh_walk_counted`)
     and its lanes off K1's tile scan (`_differ`); one dict per leaf size,
     with the tree's nodes, records, depth and build ms."""
     from ..ops import bvh, closest_hit
@@ -188,7 +166,8 @@ def walk_sweep(scene, od, tables, tmin: float = 1e-3,
         nodes, slots = bvh.kernel_records(tree)
         tab = tables._replace(bvh=bvh.HitBVH(tree=tree, nodes=nodes,
                                              slots=slots, build_ms=build_ms))
-        ms = event_ms(lambda: closest_hit.bvh_closest_hit(od, tmin, tab))
+        ms = time_ms(lambda: closest_hit.bvh_closest_hit(od, tmin, tab),
+                     od.device)
         *hit, counts = closest_hit.bvh_walk_counted(od, tmin, tab)
         mean = counts.double().mean(dim=1).tolist()
         rows.append({"leaf_size": leaf, "nodes": tree.node_count,

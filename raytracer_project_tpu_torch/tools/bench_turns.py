@@ -12,12 +12,12 @@ CASEs name the cases to time (all of them by default).
 
 Cases (the port's render entry, `integrator.render`, on the card):
   showcase   the showcase, 800x450 @ 32 spp, depth 10, beauty (the fused
-             main path of chip_smoke.py's phase full);
+             main path);
   full_fog   showcase_scene(use_fog=True), 800x450 @ 32 spp, depth 10,
-             the three AOVs and both split passes (phase features full);
+             the three AOVs and both split passes;
   config2    BASELINE config 2, the Cornell box with fog 0.002, 512x512 @
              64 spp, depth 8, solid black sky, beauty;
-  f3_mesh    chip_smoke.py's frontend F3: a RenderSession over a mesh of
+  f3_mesh    a RenderSession over a mesh of
              cuda:0 listed 4 times, `render --preset showcase` at 800x450 @
              32 spp, depth 10, the AOVs on, in chunks of 4 spp.
 

@@ -3,8 +3,8 @@ threads' design taken out.
 
     python -m raytracer_project_tpu_torch.tools.bench_windows [ROUNDS]
 
-The frame of chip_smoke.py's phase multicard (the showcase, 800x450 @ 32
-spp, depth 10, beauty, PHYSICAL_SUN) split into 4 windows of cuda:0:
+The showcase's main-path frame (800x450 @ 32 spp, depth 10, beauty,
+PHYSICAL_SUN) split into 4 windows of cuda:0:
   threads        parallel/render.sharded_accumulate as it is: a thread, a
                  stream and host turns for each window;
   no_turns       the same with fused_step.HostTurns.held doing nothing, so

@@ -5,8 +5,8 @@ port: `tiny_state` (its _tiny_state: four spheres, 24x16 @ 2 spp, depth
 closest-hit searches agree (the card's K4 against its plain version on the
 CPU), so that card and CPU autograd can be held against each other where
 the discrete choices are the same. The CPU tests
-(tests/test_torch_diff.py), the card's tests (tests/test_torch_cuda.py)
-and chip_smoke.py run them.
+(tests/test_torch_diff.py) and the card's tests (tests/test_torch_cuda.py)
+run them.
 """
 
 from __future__ import annotations

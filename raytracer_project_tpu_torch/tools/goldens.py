@@ -3,8 +3,8 @@ tests/test_goldens.py render_showcase, render_shirley, render_cornell,
 render_hdri): each as (scene, camera, environment, RenderConfig) of the
 port, chunked as the goldens were made, the check of a render against its
 golden, and what the golden writers share. The CPU tests
-(tests/test_torch_scene_goldens.py), the card's tests
-(tests/test_torch_cuda.py) and chip_smoke.py render them.
+(tests/test_torch_scene_goldens.py) and the card's tests
+(tests/test_torch_cuda.py) render them.
 """
 
 from __future__ import annotations

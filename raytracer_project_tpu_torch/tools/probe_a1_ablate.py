@@ -23,9 +23,7 @@ the cull saves.
 
 `ablate` runs K1's own compact-row scan (csrc/closest_hit_sparse.cuh
 tile_scan_kernel, instantiated per variant) on K1's ScanTables, so full's
-t is K1's bit for bit. `ablate_dense` runs the first port's probe on the
-dense 16-term scan (512-wide chunks), kept as the yardstick the new probe
-is timed against; only chip_smoke.py and the card tests reach it.
+t is K1's bit for bit.
 
     python -m raytracer_project_tpu_torch.tools.probe_a1_ablate [--device cpu]
 
@@ -68,8 +66,10 @@ def make_rays(p: int, seed: int = 0, device="cuda") -> torch.Tensor:
 
 
 def scene_tables(scene):
-    """(coeffs, bounds, counts) of a scene for the dense scans: the [16, G,
-    C_pad] coefficient tables, their 512-wide chunk AABBs and the primitive
+    """(coeffs, bounds, counts) of a scene for the dense scans (the
+    reference probe's grouping here, K1's dense entries
+    closest_hit_dense and closest_hit_feats_dense): the [16, G, C_pad]
+    coefficient tables, their 512-wide chunk AABBs and the primitive
     counts."""
     mm = scene.mm
     coeffs = (mm.sphere_coeff, mm.tri_coeff, mm.box_coeff)
@@ -130,9 +130,8 @@ def ablate_plain(od, tmin: float, coeffs, bounds, cols, variant: str,
     own running best. The card's grouping (the default): K1's ScanTables
     (128-wide tiles) and a warp of 32 -- the kernel stages a tile for its
     block only if some warp of it reaches the tile, so a warp's skip is
-    the whole of the cull. The dense yardstick's: scene_tables' 512-wide
-    chunks and a warp; the reference probe's: those chunks, every padded
-    column and BLOCK. The dots are f32 products of the ray features and
+    the whole of the cull. The reference probe's: scene_tables' 512-wide
+    chunks, every padded column and BLOCK. The dots are f32 products of the ray features and
     the coefficients. Returns (t f32[P], idx i32[P], type i32[P]), idx and
     type 0."""
     if variant not in VARIANTS:
@@ -167,32 +166,6 @@ def ablate(od, tmin: float, tables: k1.ScanTables, variant: str):
 ablate.launches = 0
 
 
-def ablate_dense(od, tmin: float, coeffs, bounds, cols, variant: str):
-    """The dense yardstick of P1 on the rays od f32[6, P]: coeffs, bounds
-    as `scene_tables` (512-wide chunks), cols = the columns to scan per
-    table. CPU tensors take `ablate_plain` with a warp's grouping; CUDA
-    tensors launch csrc/probe_a1_ablate.cu's probe_a1_ablate_dense.
-    Returns (t, idx, type) as `ablate_plain`."""
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}")
-    if od.device.type == "cpu":
-        return ablate_plain(od, tmin, coeffs, bounds, cols, variant)
-    kernels.require_cuda(od, *coeffs, *bounds, dtype=torch.float32)
-    for coeff, c in zip(coeffs, cols):
-        if not 0 <= c <= coeff.shape[2]:
-            raise ValueError(f"cols {c} outside the table's {coeff.shape[2]}")
-    out = k1._outputs(od, od.shape[1])
-    args = [VARIANTS.index(variant), od, od.shape[1], tmin]
-    for coeff, bnd, c in zip(coeffs, bounds, cols):
-        args += [coeff, coeff.shape[2], bnd, c]
-    kernels.launch("probe_a1_ablate_dense", *args, 0, *out)
-    kernels.count(ablate_dense)
-    return out
-
-
-ablate_dense.launches = 0
-
-
 def compare(variant: str, t, ref) -> dict:
     """How the kernel's t holds against the plain version's `ref` (same
     grouping): `ok` under P1's budgets. full/nocull: the miss sets differ on
@@ -223,26 +196,18 @@ def compare(variant: str, t, ref) -> dict:
     return stats
 
 
-def _run(label: str, fn, od, n: int) -> dict:
-    out = []
-    ms = time_ms(lambda: out.append(fn()[0]), od.device, n)
-    t = out[-1]
-    hits = int((t < T_MAX).sum())
-    print(f"{label:16s} {ms:7.3f} ms  ({od.shape[1]} rays, {hits} below "
-          f"T_MAX)", flush=True)
-    return {"variant": label, "ms": ms, "t": t}
-
-
 def run(variant: str, od, tables: k1.ScanTables, n: int = 10) -> dict:
     """One variant at tmin 0 (the probe's): ms per launch over `n` launches
-    and the t of the last, printed as the reference probe prints it."""
-    return _run(variant, lambda: ablate(od, 0.0, tables, variant), od, n)
-
-
-def run_dense(variant: str, od, coeffs, bounds, cols, n: int = 10) -> dict:
-    """`run` for the dense yardstick on `scene_tables`' tables."""
-    return _run(f"dense {variant}", lambda: ablate_dense(
-        od, 0.0, coeffs, bounds, cols, variant), od, n)
+    a round (`time_ms`) and the t of the last, printed as the reference
+    probe prints it."""
+    out = []
+    ms = time_ms(lambda: out.append(ablate(od, 0.0, tables, variant)[0]),
+                 od.device, n)
+    t = out[-1]
+    hits = int((t < T_MAX).sum())
+    print(f"{variant:16s} {ms:7.3f} ms  ({od.shape[1]} rays, {hits} below "
+          f"T_MAX)", flush=True)
+    return {"variant": variant, "ms": ms, "t": t}
 
 
 def main(device="cuda", p: int = P, seed: int = 0) -> dict:

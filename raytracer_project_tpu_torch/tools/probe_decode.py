@@ -20,9 +20,7 @@ layout: the fetched row is the hit's row of the packed table, clipped to
 the table. The hits are K1's on the showcase camera rays of the 800x450
 main path (P lanes of its first pool fill, the probe's 8,192 by default).
 
-On the card `decode_stage` launches csrc/probe_decode.cu's stage_kernel;
-the first port's kernel stays beside it as the yardstick
-`decode_stage_scalar`, which only chip_smoke.py and the card tests call.
+On the card `decode_stage` launches csrc/probe_decode.cu's stage_kernel.
 """
 
 from __future__ import annotations
@@ -90,21 +88,6 @@ def decode_stage_plain(stage: int, tables, od, t, idx, typ):
                                mrow[:, 6]])
 
 
-def _launch(entry: str, stage: int, tables, od, t, idx, typ):
-    kernels.require_cuda(od, t, tables.rectab, tables.mattab, tables.texmeta,
-                         dtype=torch.float32)
-    kernels.require_cuda(idx, typ, dtype=torch.int32)
-    p = od.shape[1]
-    out = torch.empty((fs._RO_ROWS, p), dtype=torch.float32, device=od.device)
-    kernels.launch(
-        entry, stage, od, t, idx, typ, p,
-        tables.rectab, tables.rectab.shape[0], tables.mattab,
-        tables.mattab.shape[0], tables.texmeta, tables.texmeta.shape[0],
-        tables.scan.counts[0], tables.scan.counts[1],
-        1 if tables.scan.counts[2] else 0, out)
-    return out
-
-
 def decode_stage(stage: int, tables, od, t, idx, typ):
     """P3 stage 0, 1 or 2 of the hits (t, idx, typ) of the rays od
     f32[6, P]: CPU tensors take `decode_stage_plain`, CUDA tensors launch
@@ -117,28 +100,22 @@ def decode_stage(stage: int, tables, od, t, idx, typ):
         return decode_stage_plain(stage, tables, od, t, idx, typ)
     if tables.rectab.data_ptr() % 16:
         raise ValueError("the stage kernel takes a 16 B aligned rectab")
-    out = _launch("probe_decode_stage", stage, tables, od, t, idx, typ)
+    kernels.require_cuda(od, t, tables.rectab, tables.mattab, tables.texmeta,
+                         dtype=torch.float32)
+    kernels.require_cuda(idx, typ, dtype=torch.int32)
+    p = od.shape[1]
+    out = torch.empty((fs._RO_ROWS, p), dtype=torch.float32, device=od.device)
+    kernels.launch(
+        "probe_decode_stage", stage, od, t, idx, typ, p,
+        tables.rectab, tables.rectab.shape[0], tables.mattab,
+        tables.mattab.shape[0], tables.texmeta, tables.texmeta.shape[0],
+        tables.scan.counts[0], tables.scan.counts[1],
+        1 if tables.scan.counts[2] else 0, out)
     kernels.count(decode_stage)
     return out
 
 
 decode_stage.launches = 0
-
-
-def decode_stage_scalar(stage: int, tables, od, t, idx, typ):
-    """The yardstick of `decode_stage` on CUDA tensors: the first port's
-    kernel (csrc/probe_decode.cu decode_stage_kernel). On no entry point's
-    path."""
-    if stage not in (0, 1, 2):
-        raise ValueError(f"stage {stage} is not 0, 1 or 2")
-    if od.device.type != "cuda":
-        raise ValueError("the yardstick stage runs on CUDA tensors only")
-    out = _launch("probe_decode_stage_scalar", stage, tables, od, t, idx, typ)
-    kernels.count(decode_stage_scalar)
-    return out
-
-
-decode_stage_scalar.launches = 0
 
 
 def variant_fn(variant: str, tables, od, hit, aparams):

@@ -22,9 +22,7 @@ The reference probe compiled its kernel on ones and zeros; this one runs
 the fetch on a random table and random indices in [-2, n_rows + 2) made
 from a seed, and prints the ms per launch.
 
-On the card `onehot_fetch` launches csrc/probe_onehot.cu's fetch_kernel;
-the first port's kernel stays beside it as the yardstick
-`onehot_fetch_scalar`, which only chip_smoke.py and the card tests call.
+On the card `onehot_fetch` launches csrc/probe_onehot.cu's fetch_kernel.
 """
 
 from __future__ import annotations
@@ -77,27 +75,6 @@ def onehot_fetch_plain(t, idx, table, n_out: int, mode: str):
     return tuple(outs)
 
 
-def _launch(entry: str, t, idx, table, n_out: int, mode: str, *flags):
-    """Allocate the outputs of `mode` and launch C entry `entry` (its
-    layout flags, then `flags`, then the tensors); returns the outputs."""
-    n_rows = _check(table, n_out, mode)
-    kernels.require_cuda(t, idx, table, dtype=torch.float32)
-    plain, transposed, matrix = MODES[mode]
-    p = t.shape[0]
-    if matrix:
-        out = torch.empty((n_out, p), dtype=torch.float32, device=t.device)
-        ptrs, res = None, out
-    else:
-        res = tuple(torch.empty((p,), dtype=torch.float32, device=t.device)
-                    for _ in range(n_out))
-        ptrs = (ctypes.c_void_p * max(n_out, 1))(*[o.data_ptr() for o in res])
-        out = None
-    kernels.launch(entry, plain, transposed, matrix, *flags, t, idx, table,
-                   n_rows, n_out,
-                   None if ptrs is None else ctypes.addressof(ptrs), out, p)
-    return res
-
-
 def onehot_fetch(t, idx, table, n_out: int, mode: str,
                  staged: bool | None = None):
     """The fetch of `onehot_fetch_plain`: CPU tensors take it, CUDA tensors
@@ -111,29 +88,29 @@ def onehot_fetch(t, idx, table, n_out: int, mode: str,
         raise ValueError("mode plain fetches no table to stage")
     if t.device.type == "cpu":
         return onehot_fetch_plain(t, idx, table, n_out, mode)
+    n_rows = _check(table, n_out, mode)
     if table.data_ptr() % 16:
         raise ValueError("the fetch kernel takes a 16 B aligned table")
-    res = _launch("probe_onehot", t, idx, table, n_out, mode,
-                  -1 if staged is None else int(staged))
+    kernels.require_cuda(t, idx, table, dtype=torch.float32)
+    plain, transposed, matrix = MODES[mode]
+    p = t.shape[0]
+    if matrix:
+        out = torch.empty((n_out, p), dtype=torch.float32, device=t.device)
+        ptrs, res = None, out
+    else:
+        res = tuple(torch.empty((p,), dtype=torch.float32, device=t.device)
+                    for _ in range(n_out))
+        ptrs = (ctypes.c_void_p * max(n_out, 1))(*[o.data_ptr() for o in res])
+        out = None
+    kernels.launch("probe_onehot", plain, transposed, matrix,
+                   -1 if staged is None else int(staged), t, idx, table,
+                   n_rows, n_out,
+                   None if ptrs is None else ctypes.addressof(ptrs), out, p)
     kernels.count(onehot_fetch)
     return res
 
 
 onehot_fetch.launches = 0
-
-
-def onehot_fetch_scalar(t, idx, table, n_out: int, mode: str):
-    """The yardstick of `onehot_fetch` on CUDA tensors: the first port's
-    kernel (csrc/probe_onehot.cu onehot_kernel), one scalar load and one
-    store per output in a loop over n_out. On no entry point's path."""
-    if t.device.type != "cuda":
-        raise ValueError("the yardstick fetch runs on CUDA tensors only")
-    res = _launch("probe_onehot_scalar", t, idx, table, n_out, mode)
-    kernels.count(onehot_fetch_scalar)
-    return res
-
-
-onehot_fetch_scalar.launches = 0
 
 
 def make_inputs(n_rows: int, p: int, transposed: bool = False, seed: int = 0,

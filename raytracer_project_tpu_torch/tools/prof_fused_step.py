@@ -6,13 +6,12 @@ repository's tools/prof_fused_step.py).
 
 Runs the fused pool (ops/fused_step.py render_pool_fused) on the showcase
 at 800x450, one sample chunk of 23 spp, depth 10, beauty, and takes the
-state after two warm steps; then times on that state, REPS calls each
-after a warm-up: the whole step (K1, then K3 fused with its respawn), K1
-alone, and K3 fused with its respawn. On the card the time is the
-device's, from CUDA events around calls queued behind a device sleep (so
-the host's launch cost does not show), and a profiler pass over the K3
-calls splits that row into K3 fused's shade kernel and the respawn
-kernel; on the CPU it is the host clock. Prints the reference's
+state after two warm steps; then times on that state with `tools.time_ms`
+(REPS calls a round): the whole step (K1, then K3 fused with its
+respawn), K1 alone, and K3 fused with its respawn. On the card the time
+is the device's, and a profiler pass over the K3 calls splits that row
+into K3 fused's shade kernel and the respawn kernel; on the CPU it is the
+host clock. Prints the reference's
 `name  ms` lines on stderr.
 
 The reference's A2 (decode), seam (row gathers), B (shade-advance) and
@@ -74,24 +73,6 @@ def capture_step(scene, cam, env, config, device, warm: int = 2):
     return tables, (state_f[:6].contiguous(), fs.T_MIN, tables.scan), args
 
 
-def _device_ms(fn, device, reps: int) -> float:
-    """ms per call of fn: on the card CUDA events around `reps` calls
-    queued behind ~0.1 s of device sleep, after a warm-up call; on the
-    CPU the host clock (tools.time_ms)."""
-    if device.type != "cuda":
-        return time_ms(fn, device, reps)
-    fn()
-    torch.cuda.synchronize(device)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _kernel_ms(fn, reps: int) -> dict:
     """Device ms per call by kernel name over `reps` calls of fn, from a
     torch.profiler trace (card only)."""
@@ -141,9 +122,9 @@ def main(argv=None) -> dict:
     k1_fn = lambda: k1.closest_hit(*k1_args)
     k3_fn = lambda: fs.shade_accumulate(*k3_args)
     step = lambda: fs.shade_accumulate(k3_args[0], k1_fn(), *k3_args[2:])
-    rows = {"full body step": _device_ms(step, dev, REPS),
-            "K1 closest_hit_od": _device_ms(k1_fn, dev, REPS),
-            "K3 fused + respawn": _device_ms(k3_fn, dev, REPS)}
+    rows = {"full body step": time_ms(step, dev, REPS),
+            "K1 closest_hit_od": time_ms(k1_fn, dev, REPS),
+            "K3 fused + respawn": time_ms(k3_fn, dev, REPS)}
     if dev.type == "cuda":
         by_name = _kernel_ms(k3_fn, REPS)
         for label, tag in (("K3 fused shade_kernel (profiler)", "shade_kernel"),

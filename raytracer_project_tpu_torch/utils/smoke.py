@@ -227,7 +227,7 @@ def _render(label, inputs, cfg, device, engine):
 def render_fused_fast(device=None):
     """The fused-fast stage's render on `device` (the card when None):
     [(golden_name, label, max_frac, img)], shared by the stage, the golden
-    tools and chip_smoke.py."""
+    tools and the card tests."""
     from ..models import environment
     from ..ops import fused_step, integrator
 

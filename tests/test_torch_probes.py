@@ -220,19 +220,13 @@ def test_ablation_cull_only_skips_tiles(p1, seed):
 
 
 def test_ablation_wrappers_on_the_cpu(p1, capsys):
-    """On CPU tensors `ablate_dense` is the plain version grouped per warp
-    over the dense tables' 512-wide chunks, the probe's entry runs the
-    four variants, and an unknown variant raises."""
+    """The probe's entry runs the four variants on the CPU, and an unknown
+    variant raises."""
     _, ts, od = p1
     odt = torch.as_tensor(od[:, :256]).contiguous()
-    dense = pa.scene_tables(ts)
-    for v in pa.VARIANTS:
-        t = pa.ablate_dense(odt, 0.0, *dense, v)[0]
-        assert torch.equal(t, pa.ablate_plain(odt, 0.0, *dense, v, pa.WARP)[0])
     runs = pa.main("cpu", p=256)
     assert list(runs) == list(pa.VARIANTS)
     assert torch.equal(runs["full"]["t"], runs["nocull"]["t"])
-    assert "dense full" in pa.run_dense("full", odt, *dense)["variant"]
     assert "nocull" in capsys.readouterr().out
     with pytest.raises(ValueError, match="unknown variant"):
         pa.ablate(odt, 0.0, k1.scan_tables(ts), "nothing")
@@ -427,16 +421,11 @@ def test_decode_stage_matches_reference(p3, stage):
             np.testing.assert_array_equal(out[k], ref[k], err_msg=f"row {k}")
 
 
-def test_yardsticks_take_cuda_tensors_only(p3):
-    """The first port's kernels, kept as yardsticks, have no CPU path."""
+def test_decode_stage_refuses_stage_3(p3):
+    """P3's stages are 0, 1 and 2 (d3 is K2): stage 3 raises."""
     _, _, tt, od, hit = p3
-    t, idx, table = po.make_inputs(N_ROWS, 64, device="cpu")
-    with pytest.raises(ValueError, match="CUDA"):
-        po.onehot_fetch_scalar(t, idx, table, N_OUT, "col")
-    with pytest.raises(ValueError, match="CUDA"):
-        pd.decode_stage_scalar(1, tt, od, *hit)
     with pytest.raises(ValueError, match="stage 3"):
-        pd.decode_stage_scalar(3, tt, od, *hit)
+        pd.decode_stage(3, tt, od, *hit)
 
 
 def test_every_c_entry_matches_its_signature():
