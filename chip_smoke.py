@@ -888,7 +888,8 @@ def count_launches(results: dict) -> dict:
     """The launches of each kernel in one frame of each path, read around
     the render with the counters zeroed just before it. For the kernels'
     entries, at 800x450 @ 32 spp with each kernel's device ms a launch
-    there by the profiler: the fused pool's beauty frame of the showcase
+    there by the profiler, whose count of each kernel's launches must equal
+    its counter's: the fused pool's beauty frame of the showcase
     (the start, K1, K3 fused; K2 and the unfused K3 none), its features
     frame (the fog showcase, every AOV, both split passes), the chunked
     path's frame with its AOVs (K4; untraced), and the funnel's beauty
@@ -944,6 +945,13 @@ def count_launches(results: dict) -> dict:
                 results[key]["frame_ms_per_launch"] = ms / n
                 log(f"  {tag} in the frame: {ms / n:.4f} ms a launch over "
                     f"{n} launches (profiler)")
+                if n != launches[name]:
+                    # The fused pool's captured steps count a replay's
+                    # launches from the capture: the trace holds the
+                    # launches made.
+                    raise RuntimeError(
+                        f"{label} frame: {launches[name]} {name} launches "
+                        f"counted, {n} {tag} launches in the trace")
     for label, render in _path_frames(beauty):
         _zero(counter)
         launches = render()

@@ -72,6 +72,16 @@
 // every lane free and next_work 0 (both call spawn_lane), which also
 // writes the counters.
 //
+// On the card the pool replays each step as a captured CUDA graph
+// (fused_step.StepGraphs): K1, both launches of K3 fused and the live
+// count's copy to pinned host memory (copy_async_launch). A graph keeps
+// its launches' arguments, so the values that change from call to call
+// reach it through fixed device buffers, which step_inputs_kernel fills
+// once per call: the camera's and environment's parameter vectors, and
+// the block dyn = (seed, sample_offset, aux) that shade_kernel and
+// respawn_kernel read in place of their by-value arguments when it is
+// given (FusedArgs.dyn; null on every eager launch).
+//
 // Bound on the H100: bytes. The unfused beauty variant reads 24 record
 // rows, 16 state rows and up to 6 texel words and writes 16 state rows, 3
 // contributions and a target: about 272 B/lane at 3.35 TB/s, and K2 moved
@@ -226,6 +236,8 @@ struct FusedArgs {
   const int* typ;
   float* acc;        // f32[channels * stride]: channel c at c * stride
   int stride;        // n_pixels + 1
+  const int* dyn;    // null, or i32[3] (seed, sample_offset, aux) read in
+                     // place of the by-value arguments
 };
 
 // The record of lane i from K2's [24, P] rows (the unfused K3).
@@ -265,6 +277,12 @@ __global__ void shade_kernel(
     int* __restrict__ out_i,
     float* __restrict__ contrib, int* __restrict__ tgt,
     int* __restrict__ counts, FusedArgs fa) {
+  if constexpr (FUSED) {
+    if (fa.dyn != nullptr) {
+      seed = (uint32_t)fa.dyn[0];
+      aux = fa.dyn[2];
+    }
+  }
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool in = i < p;
   bool live = false, free_lane = false, still = false;
@@ -670,7 +688,12 @@ __global__ void respawn_kernel(
     const long long* __restrict__ seg_in, const int* __restrict__ counts,
     float* __restrict__ out_f, int* __restrict__ out_i,
     int* __restrict__ next_out, long long* __restrict__ seg_out,
-    int* __restrict__ live_count, long long* __restrict__ steps) {
+    int* __restrict__ live_count, long long* __restrict__ steps,
+    const int* __restrict__ dyn) {
+  if (dyn != nullptr) {
+    seed = (uint32_t)dyn[0];
+    sample_offset = dyn[1];
+  }
   __shared__ long long red[NWARP];
   __shared__ int warp_free[NWARP];
   const int nb = gridDim.x;
@@ -820,7 +843,7 @@ static int launch_step(
         inv_w, total_work, n_beauty, (const int*)next_work,
         (const long long*)segments, (const int*)counts, (float*)out_f,
         (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count,
-        (long long*)steps);
+        (long long*)steps, fa.dyn);
   } else {
     respawn_kernel<false><<<grid, BLOCK, 0, s>>>(
         p, (const float*)bparams, seed, sample_offset, pixel_offset, n_pixels,
@@ -828,7 +851,7 @@ static int launch_step(
         inv_w, total_work, n_beauty, (const int*)next_work,
         (const long long*)segments, (const int*)counts, (float*)out_f,
         (int*)out_i, (int*)next_out, (long long*)seg_out, (int*)live_count,
-        (long long*)steps);
+        (long long*)steps, fa.dyn);
   }
   return (int)cudaGetLastError();
 }
@@ -854,7 +877,8 @@ extern "C" int shade_advance_launch(
 }
 
 // K3 fused: decodes K1's hits in registers, adds finished paths into acc
-// in place, and adds the step to steps when it began with live lanes.
+// in place, and adds the step to steps when it began with live lanes;
+// dyn: null, or the captured step's block (seed, sample_offset, aux).
 extern "C" int shade_accumulate_launch(
     const void* t, const void* idx, const void* typ, const void* state_f,
     const void* state_i, int p, const void* bparams, const void* atlas_rows,
@@ -868,13 +892,13 @@ extern "C" int shade_accumulate_launch(
     float ah, float aw, int has_env, float eh, float ew, int stride,
     const void* next_work, const void* segments, void* out_f, void* out_i,
     void* acc, void* counts, void* next_out, void* seg_out, void* live_count,
-    void* steps, void* stream) {
+    void* steps, const void* dyn, void* stream) {
   FusedArgs fa{DecodeTables{(const float*)aparams, (const float*)rectab,
                             (const float*)mattab, (const float*)texmeta, n_rec,
                             n_mat, n_tex, n_spheres, n_tris, has_boxes,
                             has_env, ah, aw, eh, ew},
                (const float*)t, (const int*)idx, (const int*)typ,
-               (float*)acc, stride};
+               (float*)acc, stride, (const int*)dyn};
   return launch_step<true>(
       nullptr, state_f, state_i, p, bparams, atlas_rows, grad_rows, env_rows,
       vparams, seed, sample_offset, pixel_offset, n_pixels, inv_n, width,
@@ -882,4 +906,45 @@ extern "C" int shade_accumulate_launch(
       use_reflection, use_refraction, n_beauty, n_volumes, next_work,
       segments, out_f, out_i, nullptr, nullptr, counts, next_out, seg_out,
       live_count, steps, fa, (cudaStream_t)stream);
+}
+
+// --- a captured step's per-call inputs ------------------------------------------
+
+// dyn = (seed, sample_offset, aux), and the call's parameter vectors copied
+// into the fixed buffers a captured step reads (one block).
+__global__ void step_inputs_kernel(int* __restrict__ dyn, uint32_t seed,
+                                   int sample_offset, int aux,
+                                   float* __restrict__ bp,
+                                   const float* __restrict__ bp_src, int n_bp,
+                                   float* __restrict__ ap,
+                                   const float* __restrict__ ap_src,
+                                   int n_ap) {
+  int i = threadIdx.x;
+  if (i < n_bp) bp[i] = bp_src[i];
+  if (i < n_ap) ap[i] = ap_src[i];
+  if (i == 0) {
+    dyn[0] = (int)seed;
+    dyn[1] = sample_offset;
+    dyn[2] = aux;
+  }
+}
+
+extern "C" int step_inputs_launch(void* dyn, unsigned int seed,
+                                  int sample_offset, int aux, void* bp,
+                                  const void* bp_src, int n_bp, void* ap,
+                                  const void* ap_src, int n_ap, void* stream) {
+  int n = n_bp > n_ap ? n_bp : n_ap;
+  if (n <= 0 || n > 1024) return (int)cudaErrorInvalidValue;
+  step_inputs_kernel<<<1, n, 0, (cudaStream_t)stream>>>(
+      (int*)dyn, seed, sample_offset, aux, (float*)bp, (const float*)bp_src,
+      n_bp, (float*)ap, (const float*)ap_src, n_ap);
+  return (int)cudaGetLastError();
+}
+
+// nbytes from src to dst in stream order (the live count to its pinned
+// host slot; inside a capture, the graph's copy node).
+extern "C" int copy_async_launch(void* dst, const void* src, int nbytes,
+                                 void* stream) {
+  return (int)cudaMemcpyAsync(dst, src, (size_t)nbytes, cudaMemcpyDefault,
+                              (cudaStream_t)stream);
 }

@@ -13,11 +13,14 @@ link the CUDA runtime statically and launch on the calling thread's
 current device, so `launch` raises unless every tensor lies on that
 device. Loading and the wrappers' launch counts (`count`) are safe from
 several threads at once: parallel/render.py renders each window of a
-mesh in a thread of its own.
+mesh in a thread of its own. While a thread captures a CUDA graph, the
+counts its launches would add are held (`held_counts`) and added once per
+replay (`count_all`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import shutil
 import subprocess
@@ -63,10 +66,13 @@ SIGNATURES = {
                                 + [_U, _I, _I, _I, _F, _I, _F, _I, _I, _I, _I,
                                    _F, _I, _I, _I, _I, _I]
                                 + [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
-                                   _F, _F, _I, _F, _F, _I] + [_P] * 11),
+                                   _F, _F, _I, _F, _F, _I] + [_P] * 12),
     "pool_start_launch": ("shade_advance",
                           [_I, _P, _U, _I, _I, _I, _F, _I, _F, _I, _I, _I]
                           + [_P] * 7),
+    "step_inputs_launch": ("shade_advance", [_P, _U, _I, _I, _P, _P, _I, _P,
+                                             _P, _I, _P]),
+    "copy_async_launch": ("shade_advance", [_P, _P, _I, _P]),
     "probe_a1_ablate": ("probe_a1_ablate", [_I, _P, _I, _F] + [_P, _P, _I] * 3
                         + [_I, _P, _P, _P, _P]),
     "probe_onehot": ("probe_onehot", [_I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
@@ -81,6 +87,8 @@ _entries: dict = {}
 # Held while a library is built or loaded, and while a count is updated.
 _load_lock = threading.RLock()
 _count_lock = threading.Lock()
+# Per thread: the list that holds its counts while it captures, or None.
+_held = threading.local()
 
 
 def _nvcc() -> str:
@@ -188,9 +196,34 @@ def launch(entry: str, *args) -> None:
 
 
 def count(wrapper, attr: str = "launches") -> None:
-    """Add one to a wrapper's launch count `wrapper.<attr>`."""
+    """Add one to a wrapper's launch count `wrapper.<attr>` (or hold the
+    count, inside `held_counts`)."""
+    held = getattr(_held, "counts", None)
+    if held is not None:
+        held.append((wrapper, attr))
+        return
     with _count_lock:
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def count_all(pairs) -> None:
+    """Add one to `wrapper.<attr>` for each (wrapper, attr) of pairs."""
+    with _count_lock:
+        for wrapper, attr in pairs:
+            setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+@contextlib.contextmanager
+def held_counts():
+    """The block's counts in this thread, held and not added: yields the
+    list of their (wrapper, attr) pairs, in order. A CUDA graph's capture
+    launches nothing, so its launches count when it replays (`count_all`)."""
+    prev = getattr(_held, "counts", None)
+    _held.counts = held = []
+    try:
+        yield held
+    finally:
+        _held.counts = prev
 
 
 def check(code: int, what: str) -> None:

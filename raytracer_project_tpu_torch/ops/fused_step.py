@@ -38,12 +38,15 @@ tensors.
 A pool call's set-up is small and fixed: the scene's tables and the
 environment's and camera's parameter vectors are built once per distinct
 input and reused by later calls (`DerivedCache`), and the lanes start in
-one launch (`initial_state`).
+one launch (`initial_state`). On the card a pool step is one replay of a
+captured CUDA graph (ops/step_graphs.py: K1, K3 fused, the respawn and
+the live count's copy), kept per stream and shape for the calls that
+follow, so a turn of the host costs a graph launch and an event, not the
+wrappers' checks, allocations and ctypes calls.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import threading
 from typing import NamedTuple
@@ -864,8 +867,9 @@ def shade_advance(tables: FusedTables, rec, state_f, state_i, next_work,
         return shade_advance_plain(tables, rec, state_f, state_i, next_work,
                                    segments, bparams, sp)
     kernels.require_cuda(rec, state_f, dtype=torch.float32)
-    scalars, outs = _k3_launch_parts(tables, state_f, state_i, next_work,
-                                     segments, bparams, sp)
+    scalars = _k3_scalars(tables, state_f, state_i, next_work, segments,
+                          bparams, sp)
+    outs = _k3_outputs(state_f, state_i)
     out_f, out_i, counts, next_out, seg_out, live_count = outs
     p, dev = rec.shape[1], rec.device
     n_c, n_t = output_rows(sp)
@@ -886,11 +890,10 @@ shade_advance.launches = 0
 shade_advance.features_launches = 0
 
 
-def _k3_launch_parts(tables: FusedTables, state_f, state_i, next_work,
-                     segments, bparams, sp: StepParams):
+def _k3_scalars(tables: FusedTables, state_f, state_i, next_work, segments,
+                bparams, sp: StepParams):
     """What K3's two C entries share: the checks of the state and tables,
-    the launch's scalar block (bparams through n_volumes), and the outputs
-    it writes, (out_f, out_i, counts, next_out, seg_out, live_count)."""
+    and the launch's scalar block (bparams through n_volumes)."""
     kernels.require_cuda(state_f, bparams, tables.atlas_rows,
                          tables.grad_rows, tables.env_rows, tables.vparams,
                          dtype=torch.float32)
@@ -901,9 +904,8 @@ def _k3_launch_parts(tables: FusedTables, state_f, state_i, next_work,
                          f"expected {state_rows(sp)}")
     if sp.n_volumes > tables.vparams.shape[0]:
         raise ValueError("n_volumes exceeds the volume table")
-    p, dev = state_f.shape[1], state_f.device
     aov_mask = sum(1 << k for k, name in enumerate(AOVS) if name in sp.aovs)
-    scalars = (
+    return (
         bparams, tables.atlas_rows, tables.grad_rows, tables.env_rows,
         tables.vparams, sp.seed, sp.sample_offset, sp.pixel_offset,
         sp.n_pixels, float(np.float32(1.0 / sp.n_pixels)), sp.width,
@@ -911,12 +913,18 @@ def _k3_launch_parts(tables: FusedTables, state_f, state_i, next_work,
         sp.env_mode, sp.aux, float(sp.z_max), aov_mask,
         int(sp.use_reflection), int(sp.use_refraction), sp.n_beauty,
         sp.n_volumes)
-    outs = (torch.empty_like(state_f), torch.empty_like(state_i),
+
+
+def _k3_outputs(state_f, state_i) -> tuple:
+    """The buffers K3's C entries write: (out_f, out_i, counts (the
+    per-block counts of the respawn's scan), next_out, seg_out,
+    live_count)."""
+    p, dev = state_f.shape[1], state_f.device
+    return (torch.empty_like(state_f), torch.empty_like(state_i),
             torch.empty((3, -(-p // 256)), dtype=torch.int32, device=dev),
             torch.empty((1,), dtype=torch.int32, device=dev),
             torch.empty((1,), dtype=torch.int64, device=dev),
             torch.empty((1,), dtype=torch.int32, device=dev))
-    return scalars, outs
 
 
 # ---------------------------------------------------------------------------
@@ -972,13 +980,31 @@ def shade_accumulate(tables: FusedTables, hits, state_f, state_i, next_work,
         return shade_accumulate_plain(tables, hits, state_f, state_i,
                                       next_work, segments, steps, aparams,
                                       bparams, sp, acc)
+    outs = _k3_outputs(state_f, state_i)
+    _shade_accumulate_into(tables, hits, state_f, state_i, next_work,
+                           segments, steps, aparams, bparams, sp, acc, outs)
+    out_f, out_i, _, next_out, seg_out, live_count = outs
+    return out_f, out_i, next_out, seg_out, live_count, steps
+
+
+shade_accumulate.launches = 0
+shade_accumulate.features_launches = 0
+
+
+def _shade_accumulate_into(tables: FusedTables, hits, state_f, state_i,
+                           next_work, segments, steps, aparams, bparams,
+                           sp: StepParams, acc, outs, dyn=None) -> None:
+    """`shade_accumulate`'s launch on the card, into `outs` (the buffers of
+    `_k3_outputs`). dyn: None, or a device block i32[3] (seed,
+    sample_offset, aux) that the kernels read in place of sp's (a captured
+    step, ops/step_graphs.py)."""
     t, idx, typ = hits
     kernels.require_cuda(t, state_f, aparams, acc, tables.rectab,
                          tables.mattab, tables.texmeta, dtype=torch.float32)
     kernels.require_cuda(idx, typ, dtype=torch.int32)
     kernels.require_cuda(steps, dtype=torch.int64)
-    scalars, outs = _k3_launch_parts(tables, state_f, state_i, next_work,
-                                     segments, bparams, sp)
+    scalars = _k3_scalars(tables, state_f, state_i, next_work, segments,
+                          bparams, sp)
     out_f, out_i, counts, next_out, seg_out, live_count = outs
     p = state_f.shape[1]
     if t.shape[0] != p:
@@ -996,16 +1022,11 @@ def shade_accumulate(tables: FusedTables, hits, state_f, state_i, next_work,
         1 if tables.scan.counts[2] else 0, float(tables.atlas_hw[0]),
         float(tables.atlas_hw[1]), 1 if tables.env_hw is not None else 0,
         float(eh), float(ew), stride, next_work, segments, out_f, out_i, acc,
-        counts, next_out, seg_out, live_count, steps)
+        counts, next_out, seg_out, live_count, steps, dyn)
     if sp.features:
         kernels.count(shade_accumulate, "features_launches")
     else:
         kernels.count(shade_accumulate)
-    return out_f, out_i, next_out, seg_out, live_count, steps
-
-
-shade_accumulate.launches = 0
-shade_accumulate.features_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1054,23 +1075,25 @@ def initial_state_plain(cam, sp: StepParams, p: int, device):
             torch.zeros((1,), dtype=torch.int64, device=device))
 
 
-def initial_state(cam, bparams, sp: StepParams, p: int):
+def initial_state(cam, bparams, sp: StepParams, p: int, out=None):
     """The start of a pool render of p lanes on bparams' device, as
     `initial_state_plain` (which CPU tensors take) makes it. CUDA tensors
     launch csrc/shade_advance.cu's start_kernel, one launch that writes the
     state and the counters, its rays made from bparams (the camera's
-    values). `launches` counts them."""
+    values), into `out` (the six tensors, in the order returned; new ones
+    by default). `launches` counts them."""
     dev = bparams.device
     if dev.type == "cpu":
         return initial_state_plain(cam, sp, p, dev)
     kernels.require_cuda(bparams, dtype=torch.float32)
-    nf, ni = state_rows(sp)
-    out = (torch.empty((nf, p), dtype=torch.float32, device=dev),
-           torch.empty((ni, p), dtype=torch.int32, device=dev),
-           torch.empty((1,), dtype=torch.int32, device=dev),
-           torch.empty((1,), dtype=torch.int32, device=dev),
-           torch.empty((1,), dtype=torch.int64, device=dev),
-           torch.empty((1,), dtype=torch.int64, device=dev))
+    if out is None:
+        nf, ni = state_rows(sp)
+        out = (torch.empty((nf, p), dtype=torch.float32, device=dev),
+               torch.empty((ni, p), dtype=torch.int32, device=dev),
+               torch.empty((1,), dtype=torch.int32, device=dev),
+               torch.empty((1,), dtype=torch.int32, device=dev),
+               torch.empty((1,), dtype=torch.int64, device=dev),
+               torch.empty((1,), dtype=torch.int64, device=dev))
     kernels.launch(
         "pool_start_launch", p, bparams, sp.seed, sp.sample_offset,
         sp.pixel_offset, sp.n_pixels, float(np.float32(1.0 / sp.n_pixels)),
@@ -1227,6 +1250,37 @@ def _host_copy(x: torch.Tensor):
     return ev, host
 
 
+def _pool_setup(scene, cam, env, seed: int, config, aux: int,
+                sample_offset=0, pixel_offset: int = 0,
+                n_pixels_local: int | None = None):
+    """What a pool call derives from its inputs: (tables, aparams, bparams,
+    sp, p), the first three from their caches."""
+    dev = scene.spheres.center.device
+    n = n_pixels_local if n_pixels_local is not None else config.n_pixels
+    aovs = tuple(name for name, on in zip(AOVS, (
+        config.use_albedo, config.use_normal, config.use_z_depth)) if on)
+    want_spec = config.use_reflection or config.use_refraction
+    n_beauty = n * config.samples_per_pixel
+    total_work = n_beauty * (2 if want_spec else 1)
+    # build_tables reads the environment in HDR_MAP mode only.
+    hdr_env = env if config.env_mode == env_mod.HDR_MAP else None
+    tables = tables_cache.get(
+        dev, (scene, hdr_env, config.env_mode),
+        lambda: _build_tables_traced(scene, env, config.env_mode))
+    aparams, bparams = params_cache.get(
+        dev, (cam, env), lambda: (_aparams(env, dev), _bparams(cam, env, dev)))
+    n_volumes = scene.volumes.count if scene.volumes is not None else 0
+    sp = StepParams(
+        seed=rng.seed_from_int(seed), sample_offset=int(sample_offset),
+        n_pixels=n, width=config.width, total_work=total_work,
+        max_depth=config.max_depth, env_mode=config.env_mode, aux=int(aux),
+        z_max=float(config.z_depth_max_dist), aovs=aovs,
+        use_reflection=config.use_reflection,
+        use_refraction=config.use_refraction, n_beauty=n_beauty,
+        n_volumes=n_volumes, pixel_offset=int(pixel_offset))
+    return tables, aparams, bparams, sp, pool_size(config, total_work)
+
+
 def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
                       sample_offset=0, with_stats: bool = False,
                       pixel_offset: int = 0, n_pixels_local: int | None = None):
@@ -1244,84 +1298,63 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
     A window past the frame's end traces phantom pixels, which the caller
     drops (parallel/render.py).
 
+    On the card each step is a replay of a CUDA graph of the step, which
+    the key's first call captures (ops/step_graphs.py); the CPU launches
+    step by step. Both run the same steps.
+
     with_stats also returns {"segments", "steps"}: path segments traced
     (int64 on the device, exact) and steps taken with live lanes."""
+    from . import step_graphs
     from .integrator import SampleBuffers
 
     with spans.span("pool.call"):
-        dev = scene.spheres.center.device
-        n = n_pixels_local if n_pixels_local is not None else config.n_pixels
-        spp = config.samples_per_pixel
-        aovs = tuple(name for name, on in zip(AOVS, (
-            config.use_albedo, config.use_normal, config.use_z_depth)) if on)
-        want_spec = config.use_reflection or config.use_refraction
-        n_beauty = n * spp
-        total_work = n_beauty * (2 if want_spec else 1)
-        p = pool_size(config, total_work)
         with spans.span("pool.setup"):
-            # build_tables reads the environment in HDR_MAP mode only.
-            hdr_env = env if config.env_mode == env_mod.HDR_MAP else None
-            tables = tables_cache.get(
-                dev, (scene, hdr_env, config.env_mode),
-                lambda: _build_tables_traced(scene, env, config.env_mode))
-            aparams, bparams = params_cache.get(
-                dev, (cam, env),
-                lambda: (_aparams(env, dev), _bparams(cam, env, dev)))
-            n_volumes = (scene.volumes.count if scene.volumes is not None
-                         else 0)
-            sp = StepParams(
-                seed=rng.seed_from_int(seed), sample_offset=int(sample_offset),
-                n_pixels=n, width=config.width, total_work=total_work,
-                max_depth=config.max_depth, env_mode=config.env_mode,
-                aux=int(aux), z_max=float(config.z_depth_max_dist),
-                aovs=aovs, use_reflection=config.use_reflection,
-                use_refraction=config.use_refraction, n_beauty=n_beauty,
-                n_volumes=n_volumes, pixel_offset=int(pixel_offset))
-            (state_f, state_i, next_work, live_count, segments,
-             steps) = initial_state(cam, bparams, sp, p)
+            tables, aparams, bparams, sp, p = _pool_setup(
+                scene, cam, env, seed, config, aux, sample_offset,
+                pixel_offset, n_pixels_local)
+            dev = tables.rectab.device
+            graph = (step_graphs.cache.take(tables, sp, p)
+                     if dev.type == "cuda" else None)
+            if graph is None:
+                state = initial_state(cam, bparams, sp, p)
+                # One flat accumulator, channel c at [c * stride, c * stride
+                # + n); K3 fused adds each lane's finished values to it.
+                acc = new_accumulator(sp, dev)
+            else:
+                graph.start(cam, aparams, bparams, sp)
+                acc = graph.acc
+        try:
+            with spans.span("pool.loop"):
+                if graph is None:
+                    segments, steps = step_graphs.eager_loop(
+                        tables, state, aparams, bparams, sp, acc)
+                else:
+                    segments, steps = graph.loop()
 
-            # One flat accumulator, channel c at [c * stride, c * stride + n);
-            # K3 fused adds each lane's finished values to it.
-            acc = new_accumulator(sp, dev)
-            stride = n + 1
+            with spans.span("pool.finish"):
+                n, stride = sp.n_pixels, sp.n_pixels + 1
+                order = ("beauty",) + sp.aovs + (
+                    ("reflection", "refraction") if sp.want_spec else ())
+                zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
 
-        lag = 1 if dev.type == "cpu" else LIVE_LAG
-        with spans.span("pool.loop"):
-            pending = collections.deque([_host_copy(live_count)])
-            while True:
-                if len(pending) >= lag:
-                    ev, live_host = pending.popleft()
+                def get(name):
+                    # A copy: the accumulator may be a captured step's.
+                    if name not in order:
+                        return zeros3
+                    c0 = 3 * order.index(name) * stride
+                    return acc[c0:c0 + 3 * stride].reshape(
+                        3, stride)[:, :n].T.clone(
+                            memory_format=torch.contiguous_format)
+
+                out = SampleBuffers(*(get(f) for f in SampleBuffers._fields))
+                stats = None
+                if with_stats:
+                    ev, counts = _host_copy(torch.cat([segments, steps]))
                     if ev is not None:
                         _wait(ev)
-                    if int(live_host[0]) == 0:
-                        break
-                # Steps after the pool drains are no-ops: nothing is live,
-                # nothing spawns, nothing is added and the step count stays.
-                with spans.span("pool.launch"):
-                    hits = k1.closest_hit(state_f[:6], T_MIN, tables.scan)
-                    (state_f, state_i, next_work, segments, live_count,
-                     steps) = shade_accumulate(
-                        tables, hits, state_f, state_i, next_work, segments,
-                        steps, aparams, bparams, sp, acc)
-                pending.append(_host_copy(live_count))
-
-        with spans.span("pool.finish"):
-            order = ("beauty",) + aovs + (
-                ("reflection", "refraction") if want_spec else ())
-            zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-
-            def get(name):
-                if name not in order:
-                    return zeros3
-                c0 = 3 * order.index(name) * stride
-                return acc[c0:c0 + 3 * stride].reshape(
-                    3, stride)[:, :n].T.contiguous()
-
-            out = SampleBuffers(*(get(f) for f in SampleBuffers._fields))
-            if with_stats:
-                ev, counts = _host_copy(torch.cat([segments, steps]))
-                if ev is not None:
-                    _wait(ev)
-                return out, {"segments": int(counts[0]),
+                    stats = {"segments": int(counts[0]),
                              "steps": int(counts[1])}
-            return out
+        finally:
+            if graph is not None:
+                graph.lock.release()
+        return (out, stats) if with_stats else out

@@ -12,7 +12,9 @@ render up to the order in which a pixel's samples are summed.
 Every window renders at once, as the reference's shard_map runs every
 device of its mesh: each in a worker thread of its own. A CUDA window's
 thread makes the window's card its current device and renders on a stream
-of its own, so windows on distinct cards run side by side, and windows on
+of its own (the same stream for the same window of every call, so the
+fused pool's captured steps, kept per stream, serve the next call too),
+so windows on distinct cards run side by side, and windows on
 one card overlap their waits on it (the fused pool reads its live count
 every step). The threads share the interpreter, so the CUDA windows take
 turns at the host (fused_step.HostTurns): one runs host code while the
@@ -30,7 +32,9 @@ must not change while a render runs.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import threading
 
 import numpy as np
 import torch
@@ -65,6 +69,19 @@ def _indexed(dev) -> torch.device:
     return dev
 
 
+_streams = {}
+_streams_lock = threading.Lock()
+
+
+def _window_stream(dev, k: int):
+    """The stream of the k-th window of a call on the card dev."""
+    with _streams_lock:
+        stream = _streams.get((dev, k))
+        if stream is None:
+            stream = _streams[(dev, k)] = torch.cuda.Stream(device=dev)
+        return stream
+
+
 def _in_window(fn, dev, stream, turns, grad: bool):
     """fn() in a window's thread, as the span `window.render`: on a CUDA
     device, with the device current, `stream` the current stream (finished
@@ -87,11 +104,12 @@ def run_windows(fns, devices) -> list:
     has ended. The first window (in order) that raised raises here, with
     "window i of n on <device>" added to its notes."""
     devices = [_indexed(d) for d in devices]
-    streams = []
+    streams, on_card = [], collections.Counter()
     for dev in devices:
         stream = None
         if dev.type == "cuda":
-            stream = torch.cuda.Stream(device=dev)
+            stream = _window_stream(dev, on_card[dev])
+            on_card[dev] += 1
             # The window starts after the caller's work on the device (the
             # scene's copy there, its inputs).
             stream.wait_stream(torch.cuda.current_stream(dev))

@@ -4,15 +4,20 @@ repository's tools/prof_fused_step.py).
     python -m raytracer_project_tpu_torch.tools.prof_fused_step \
         [--device cpu] [--width 800] [--height 450] [--spp 23]
 
-Runs the fused pool (ops/fused_step.py render_pool_fused) on the showcase
-at 800x450, one sample chunk of 23 spp, depth 10, beauty, and takes the
-state after two warm steps; then times on that state with `tools.time_ms`
-(REPS calls a round): the whole step (K1, then K3 fused with its
-respawn), K1 alone, and K3 fused with its respawn. On the card the time
-is the device's, and a profiler pass over the K3 calls splits that row
-into K3 fused's shade kernel and the respawn kernel; on the CPU it is the
-host clock. Prints the reference's
-`name  ms` lines on stderr.
+Starts a fused pool (ops/fused_step.py) on the showcase at 800x450, one
+sample chunk of 23 spp, depth 10, beauty, and takes the state after two
+warm steps; then times on that state with `tools.time_ms` (REPS calls a
+round): the whole step (K1, then K3 fused with its respawn), K1 alone,
+and K3 fused with its respawn. On the card the time is the device's, and
+a profiler pass over the K3 calls splits that row into K3 fused's shade
+kernel and the respawn kernel; on the CPU it is the host clock. Prints
+the reference's `name  ms` lines on stderr.
+
+Then `host_turns` reads the host's turn of the pool loop over TURN_CALLS
+whole pool calls (render_pool_fused) of the same shape from the spans'
+own records, in a trace of the host alone: the loop less its waits, per
+turn; and counts the calls' steps and the graphs captured and replayed
+over them (ops/step_graphs.py).
 
 The reference's A2 (decode), seam (row gathers), B (shade-advance) and
 scatter-add rows have no counterpart of their own: K3 fused does all four
@@ -30,47 +35,70 @@ from . import time_ms
 
 
 REPS = 10
-
-
-class _Captured(Exception):
-    pass
+# Traced pool calls whose host turns `host_turns` reads, after one warm.
+TURN_CALLS = 20
 
 
 def capture_step(scene, cam, env, config, device, warm: int = 2):
     """(tables, the K1 arguments, the K3 fused arguments) of the fused
-    pool's step `warm` + 1 of a render of `config` on `device`: the render
-    runs `warm` steps and stops before the next."""
+    pool's step `warm` + 1 of a render of `config` on `device`: a pool
+    call's set-up and start, and `warm` steps launched one by one."""
+    from ..ops import closest_hit as k1
     from ..ops import fused_step as fs
 
-    orig = fs.shade_accumulate
-    seen = []
-
-    def spy(*args):
-        if len(seen) == warm:
-            seen.append(args)
-            raise _Captured
-        seen.append(None)
-        return orig(*args)
-
-    # shade_accumulate counts its launches on the function its module
-    # names: the spy while it stands in, handed back to it afterwards.
-    spy.launches, spy.features_launches = orig.launches, orig.features_launches
-    fs.shade_accumulate = spy
-    try:
-        fs.render_pool_fused(scene.to(device), cam.to(device),
-                             env.to(device), 0, config,
-                             aux=config.aux_samples)
-    except _Captured:
-        pass
-    finally:
-        fs.shade_accumulate = orig
-        orig.launches, orig.features_launches = (spy.launches,
-                                                 spy.features_launches)
-    if len(seen) <= warm:
-        raise RuntimeError(f"the pool drained in {len(seen)} steps")
-    args = seen[warm]
-    tables, state_f = args[0], args[2]
+    scene, cam, env = scene.to(device), cam.to(device), env.to(device)
+    tables, aparams, bparams, sp, p = fs._pool_setup(
+        scene, cam, env, 0, config, config.aux_samples)
+    state_f, state_i, next_work, live, segments, steps = fs.initial_state(
+        cam, bparams, sp, p)
+    acc = fs.new_accumulator(sp, device)
+    for _ in range(warm):
+        hits = k1.closest_hit(state_f[:6], fs.T_MIN, tables.scan)
+        state_f, state_i, next_work, segments, live, steps = (
+            fs.shade_accumulate(tables, hits, state_f, state_i, next_work,
+                                segments, steps, aparams, bparams, sp, acc))
+    if int(live[0]) == 0:
+        raise RuntimeError(f"the pool drained in {warm} steps")
+    hits = k1.closest_hit(state_f[:6], fs.T_MIN, tables.scan)
+    args = (tables, hits, state_f, state_i, next_work, segments, steps,
+            aparams, bparams, sp, acc)
     return tables, (state_f[:6].contiguous(), fs.T_MIN, tables.scan), args
+
+
+def host_turns(scene, cam, env, config, device,
+               calls: int = TURN_CALLS) -> dict:
+    """The pool loop's host time per turn over `calls` pool calls
+    (render_pool_fused, one sample chunk each, seeds 1..calls) after one
+    warm call, from the spans' records in a torch.profiler trace of the
+    host: `pool.loop` less its `pool.wait`s, over the turns (`pool.launch`,
+    the lag's no-op tail included). Also the calls' steps and the graphs
+    captured and replayed over them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import fused_step as fs
+    from ..ops.step_graphs import cache as graphs
+
+    scene, cam, env = scene.to(device), cam.to(device), env.to(device)
+    render = lambda seed: fs.render_pool_fused(
+        scene, cam, env, seed, config, aux=config.aux_samples,
+        with_stats=True)[1]["steps"]
+    render(0)
+    before = (graphs.captured, graphs.replayed)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        steps = sum(render(seed) for seed in range(1, calls + 1))
+    ns = {"pool.loop": 0, "pool.wait": 0}
+    turns = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.name() in ns:
+            ns[ev.name()] += int(ev.end_ns()) - int(ev.start_ns())
+        turns += ev.name() == "pool.launch"
+    out = {"calls": calls, "turns": turns, "steps": steps,
+           "loop_ms": 1e-6 * ns["pool.loop"] / calls,
+           "host_ms_per_turn": 1e-6 * (ns["pool.loop"]
+                                       - ns["pool.wait"]) / turns,
+           "captured": graphs.captured - before[0],
+           "replayed": graphs.replayed - before[1]}
+    return out
 
 
 def _kernel_ms(fn, reps: int) -> dict:
@@ -137,6 +165,13 @@ def main(argv=None) -> dict:
                       f"kernel)", file=sys.stderr)
     for name, ms in rows.items():
         print(f"{name:34s} {ms:8.4f} ms", file=sys.stderr)
+    turns = host_turns(scene, cam, env, cfg, dev, TURN_CALLS)
+    rows["host per turn (spans)"] = turns["host_ms_per_turn"]
+    print(f"{'host per turn (spans)':34s} "
+          f"{turns['host_ms_per_turn']:8.4f} ms", file=sys.stderr)
+    print("host turns " + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                                   else f"{k}={v}" for k, v in turns.items()),
+          file=sys.stderr)
     print("(the reference's A2, seam, B and scatter-add rows are all K3 "
           "fused here)", file=sys.stderr)
     return rows

@@ -27,7 +27,7 @@ from raytracer_project_tpu_torch.models import presets
 from raytracer_project_tpu_torch.ops import closest_hit as k1
 from raytracer_project_tpu_torch.ops import fused_step as fs
 from raytracer_project_tpu_torch.ops import integrator
-from raytracer_project_tpu_torch.ops import intersect, traverse
+from raytracer_project_tpu_torch.ops import intersect, step_graphs, traverse
 from raytracer_project_tpu_torch.tools import agree, diff_cases, goldens
 from raytracer_project_tpu_torch.tools import probe_a1_ablate as pa
 from raytracer_project_tpu_torch.tools import probe_decode as pd
@@ -1110,6 +1110,8 @@ def test_session_on_card_with_k1_replayed_matches_cpu(cuda, monkeypatch):
     cpu = _showcase_session("cpu")
     cpu.render_progressive(8)
     monkeypatch.setattr(k1, "closest_hit", _k1_on_the_cpu)
+    # A captured step cannot run K1 on the host: every call steps eagerly.
+    monkeypatch.setattr(step_graphs.cache, "take", lambda *a: None)
     fs.shade_accumulate.features_launches = 0
     card = _showcase_session(cuda)
     card.render_progressive(8)
@@ -1640,6 +1642,204 @@ def test_bench_bvh_cases_agree_on_card(cuda):
                     and diff["hit_flips"] <= max(2, n // 100)
                     and diff["winner_flips"] <= max(2, n // 40)), (
                         row["scene"], diff)
+
+
+# --- the fused pool's captured steps (ops/step_graphs.py) --------------------
+
+def _graph_frame(cuda, name, w=64, h=36, spp=2, **cfg_kw):
+    """(scene, camera, environment, config) of a frame of the showcase or
+    of the funnel (its BVH built by the pool), beauty, depth 10, inputs on
+    the card."""
+    if name == "funnel":
+        scene = presets.bvh_stress_scene(n_spheres=8192, mesh_detail=2,
+                                         with_bvh=False)
+        cam_kw = FUNNEL_CAM
+    else:
+        scene, cam_kw = presets.showcase_scene(), CAM_KW
+    cam = tcam.make_camera(image_width=w, image_height=h, **cam_kw)
+    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
+                                sun_intensity=6.0)
+    cfg = integrator.RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                                  max_depth=10, use_albedo=False,
+                                  use_normal=False, use_z_depth=False,
+                                  **cfg_kw)
+    return scene.to(cuda), cam.to(cuda), env.to(cuda), cfg
+
+
+def _graph_counts():
+    """K1 launches, BVH launches, K3 fused launches, captures (a pair of
+    graphs each), replays."""
+    k3 = fs.shade_accumulate
+    return (k1.closest_hit.launches, k1.closest_hit.bvh_launches,
+            k3.launches + k3.features_launches, step_graphs.cache.captured,
+            step_graphs.cache.replayed)
+
+
+def _pool_call(inputs, seed):
+    """One pool call: (beauty on the host, stats, _graph_counts' growth)."""
+    before = _graph_counts()
+    out, st = fs.render_pool_fused(*inputs[:3], seed, inputs[3], 0,
+                                   with_stats=True)
+    beauty = out.beauty.cpu()
+    return beauty, st, tuple(a - b for a, b in zip(_graph_counts(), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["showcase", "funnel"])
+@pytest.mark.parametrize("size", [(64, 36, 2), (800, 450, 32)])
+def test_replayed_steps_equal_the_eager_steps(cuda, name, size, monkeypatch):
+    """A pool call stepped launch by launch (the entry's `take` stood in
+    for), then the same call twice on the captured step: the first
+    captures two graphs and replays them, a replay a turn, the second only
+    replays. Each has the eager call's segments and steps, its beauty
+    within rtol/atol 3e-4 (K3 fused adds in no fixed order) and its
+    launches (K1, on the funnel the BVH kernel every time, and K3 fused as
+    often: one more than the steps, the lag's no-op step), the capture
+    adding none. At 800x450 @ 32 spp, chip_smoke.py's frame (one pool
+    call), these are the launches a frame."""
+    monkeypatch.setattr(step_graphs, "cache", step_graphs.StepGraphs())
+    inputs = _graph_frame(cuda, name, *size)
+    with monkeypatch.context() as eager:
+        eager.setattr(step_graphs.cache, "take", lambda *a: None)
+        want, est, el = _pool_call(inputs, 3)
+    assert el[3:] == (0, 0) and est["steps"] > 0
+    for captured in (1, 0):
+        graph, gst, gl = _pool_call(inputs, 3)
+        print(name, size, "launches a call", el[:3], gl[:3], est)
+        assert gl[3:] == (captured, gl[0])
+        assert gst == est
+        assert gl[:3] == el[:3] and gl[0] == gl[2] == gst["steps"] + 1
+        assert gl[1] == (gl[0] if name == "funnel" else 0)
+        torch.testing.assert_close(graph, want, rtol=3e-4, atol=3e-4)
+        assert float(graph.max()) > 0
+
+
+@pytest.mark.cuda
+def test_step_graphs_captured_once_per_key(cuda, monkeypatch):
+    """Sessions of the showcase at 64x36, 4 spp in updates of 2, over two
+    camera poses and three keys: the first update captures two graphs,
+    and it and every later update and frame replay them, `replayed`
+    growing by the turns taken (a K1 launch each); a new pool size, a new
+    variant (the albedo AOV) and new tables (another scene) each capture
+    again."""
+    from raytracer_project_tpu_torch.utils.session import RenderSession
+
+    monkeypatch.setattr(step_graphs, "cache", step_graphs.StepGraphs())
+    graphs = step_graphs.cache
+    scene, cam, env, cfg = _graph_frame(cuda, "showcase", spp=4)
+    cam2 = tcam.make_camera(image_width=64, image_height=36, vfov=40.0,
+                            lookfrom=(-9.0, 3.0, 7.0),
+                            lookat=(0.0, 0.5, 0.0)).to(cuda)
+
+    def session(camera, key, config=cfg, world=scene):
+        sess = RenderSession(world, camera, env, config, key=key,
+                             chunk_samples=2, device=cuda)
+        sess.step(2)
+        sess.step(2)
+        assert float(sess.buffers()["beauty"].max()) > 0
+
+    launches = k1.closest_hit.launches
+    session(cam, 0)
+    assert graphs.captured == 1
+    assert graphs.replayed == k1.closest_hit.launches - launches > 0
+    replayed, launches = graphs.replayed, k1.closest_hit.launches
+    session(cam2, 1)
+    session(cam, 2)
+    assert graphs.captured == 1
+    assert graphs.replayed - replayed == k1.closest_hit.launches - launches > 0
+    for config, world in ((dataclasses.replace(cfg, pool_lanes=4096), scene),
+                          (dataclasses.replace(cfg, use_albedo=True), scene),
+                          (cfg, presets.showcase_scene(seed=5).to(cuda))):
+        captured = graphs.captured
+        session(cam, 3, config, world)
+        assert graphs.captured == captured + 1
+
+
+@pytest.mark.cuda
+def test_a_held_entry_gets_a_second_one(cuda, monkeypatch):
+    """While one call holds its key's captured step, another call of the
+    same key on the same stream captures an entry of its own and renders
+    what the first entry renders; once the first is free again, calls
+    take an entry without capturing."""
+    monkeypatch.setattr(step_graphs, "cache", step_graphs.StepGraphs())
+    inputs = _graph_frame(cuda, "showcase")
+    want, _, gl = _pool_call(inputs, 5)
+    assert gl[3] == 1
+    tables, _, _, sp, p = fs._pool_setup(*inputs[:3], 5, inputs[3], 0)
+    held = step_graphs.cache.take(tables, sp, p)
+    try:
+        assert step_graphs.cache.captured == 1
+        got, _, gl = _pool_call(inputs, 5)
+        assert gl[3] == 1
+    finally:
+        held.lock.release()
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    for _ in range(2):
+        assert _pool_call(inputs, 5)[2][3] == 0
+    assert step_graphs.cache.captured == 2
+
+
+@pytest.mark.cuda
+def test_window_threads_capture_on_their_streams(cuda, monkeypatch):
+    """The smoke gate's fused-fast frame (64x36 @ 2 spp) over four windows
+    of cuda:0, each in a thread of its own on a stream of its own
+    (parallel/render.py), twice: in the first frame each window captures
+    its step on its stream and replays it, in the second each only
+    replays it there; both frames hold the one-card frame's device
+    golden."""
+    from raytracer_project_tpu_torch.parallel import render as prender
+    from raytracer_project_tpu_torch.utils import smoke
+
+    monkeypatch.setattr(step_graphs, "cache", step_graphs.StepGraphs())
+    graphs = step_graphs.cache
+    scene, cam, env = smoke._showcase(64, 36)
+    cfg = integrator.RenderConfig(width=64, height=36, samples_per_pixel=2,
+                                  max_depth=10, env_mode=tenv.PHYSICAL_SUN,
+                                  use_albedo=False, use_normal=False,
+                                  use_z_depth=False)
+    info = smoke.device_info(cuda)
+    inputs = (scene.to(cuda), cam.to(cuda), env.to(cuda))
+    for _ in range(2):
+        replayed = graphs.replayed
+        img = prender.render_sharded(*inputs, 0, cfg,
+                                     [torch.device("cuda", 0)] * 4)
+        img = img["beauty"].cpu().numpy()
+        assert graphs.captured == 4
+        assert graphs.replayed > replayed
+        assert smoke._check_image(img, "smoke_fused_64x36", "windows", 0.01,
+                                  device=info) is None
+    assert len(graphs._entries) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["showcase", "funnel"])
+def test_replayed_steps_show_their_kernels_to_the_profiler(cuda, name,
+                                                           monkeypatch):
+    """Under torch.profiler, as the benchmark's traced runs read it
+    (kineto's device events), a pool call that replays its captured step
+    shows the kernels the roofline readers look for, each with device
+    time: K1's tile scan (on the funnel the BVH walk), K3 fused's shade
+    kernel and the respawn kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(step_graphs, "cache", step_graphs.StepGraphs())
+    inputs = _graph_frame(cuda, name, 200, 113, 4)
+    _pool_call(inputs, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, gl = _pool_call(inputs, 1)
+        torch.cuda.synchronize()
+    assert gl[3] == 0 and gl[4] > 0
+    dev_ns = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CPU:
+            dev_ns[e.name()] = (dev_ns.get(e.name(), 0)
+                                + int(e.end_ns()) - int(e.start_ns()))
+    hit = "bvh_hit_kernel" if name == "funnel" else "tile_scan_kernel<true"
+    for tag in (hit, "shade_kernel", "respawn_kernel"):
+        assert sum(v for k, v in dev_ns.items() if tag in k) > 0, (
+            tag, sorted(dev_ns))
 
 
 # --- the smoke gate's renders, the published configurations -----------------

@@ -302,10 +302,12 @@ def test_shade_accumulate_matches_reference_scatter(scenes, case):
 
 @pytest.mark.parametrize("features", [False, True])
 def test_k3_wrappers_pass_their_c_signatures(scenes, features, monkeypatch):
-    """The CUDA branches of shade_advance and shade_accumulate, driven with
-    meta tensors: each launch passes as many arguments as its C entry's
-    ctypes signature has (the stream last), a tensor exactly where the
-    signature has a pointer."""
+    """The CUDA branches of shade_advance and shade_accumulate, and K3
+    fused's launch in a captured step, driven with meta tensors: each
+    launch passes as many arguments as its C entry's ctypes signature has
+    (the stream last), a tensor exactly where the signature has a pointer,
+    but for K3 fused's last one (the captured step's block `dyn`), which
+    the eager launch passes as None (a null pointer)."""
     from raytracer_project_tpu_torch import kernels
 
     seen = []
@@ -314,6 +316,11 @@ def test_k3_wrappers_pass_their_c_signatures(scenes, features, monkeypatch):
         types = kernels.SIGNATURES[entry][1]
         assert len(args) + 1 == len(types), entry
         for k, (a, t) in enumerate(zip(args, types)):
+            if a is None:
+                assert (entry, k) == ("shade_accumulate_launch",
+                                      len(args) - 1)
+                assert t is kernels._P
+                continue
             assert isinstance(a, torch.Tensor) == (t is kernels._P), (entry, k)
         seen.append(entry)
 
@@ -332,6 +339,10 @@ def test_k3_wrappers_pass_their_c_signatures(scenes, features, monkeypatch):
     state = (meta((nf, p)), meta((ni, p), i32), meta(1, i32), meta(1, i64))
     tfs.shade_advance(tables, meta((tfs._RO_ROWS, p)), *state, meta(40), sp)
     acc = meta(len(tfs.acc_channels(sp)) * (sp.n_pixels + 1))
-    tfs.shade_accumulate(tables, (meta(p), meta(p, i32), meta(p, i32)),
-                         *state, meta(1, i64), meta(8), meta(40), sp, acc)
-    assert seen == ["shade_advance_launch", "shade_accumulate_launch"]
+    hits = (meta(p), meta(p, i32), meta(p, i32))
+    tfs.shade_accumulate(tables, hits, *state, meta(1, i64), meta(8),
+                         meta(40), sp, acc)
+    tfs._shade_accumulate_into(tables, hits, *state, meta(1, i64), meta(8),
+                               meta(40), sp, acc, tfs._k3_outputs(*state[:2]),
+                               meta(3, i32))
+    assert seen == ["shade_advance_launch"] + ["shade_accumulate_launch"] * 2

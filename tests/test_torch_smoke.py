@@ -186,11 +186,12 @@ def test_writers_refuse_the_reference(tmp_path, target):
     np.testing.assert_array_equal(np.load(written)["beauty"], _golden())
 
 
-def test_prof_fused_step_runs_small():
+def test_prof_fused_step_runs_small(monkeypatch):
+    monkeypatch.setattr(prof_fused_step, "TURN_CALLS", 1)
     rows = prof_fused_step.main(["--device", "cpu", "--width", "32",
                                  "--height", "18", "--spp", "2"])
     assert list(rows) == ["full body step", "K1 closest_hit_od",
-                          "K3 fused + respawn"]
+                          "K3 fused + respawn", "host per turn (spans)"]
     assert all(v > 0 for v in rows.values())
 
 
