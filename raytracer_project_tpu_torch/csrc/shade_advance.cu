@@ -21,7 +21,12 @@
 //         overrides the hit with the volume's isotropic phase material
 //         (reference :772-845). logf is the card's, within an ulp of the
 //         plain version's log: a lane whose flight sits on its span's end
-//         may flip, which the tests budget.
+//         may flip, which the tests budget. The fog variants take FogArgs,
+//         FusedArgs and `scatters`: given that running count (int64,
+//         zeroed at a call's start), each block adds its live lanes whose
+//         segment ends in a medium: one block count and one atomicAdd per
+//         block. The other variants keep FusedArgs, so the count adds
+//         nothing to their code.
 //   AOVS  albedo / normal / z-depth of bounce-0 beauty lanes whose absolute
 //         sample id is below aux (:965-996); aov_mask picks the buffers.
 //   SPEC  the reflection/refraction split passes as spec lanes: state rows
@@ -80,7 +85,8 @@
 // once per call: the camera's and environment's parameter vectors, and
 // the block dyn = (seed, sample_offset, aux) that shade_kernel and
 // respawn_kernel read in place of their by-value arguments when it is
-// given (FusedArgs.dyn; null on every eager launch).
+// given (FusedArgs.dyn; null on every eager launch); it also zeroes the
+// fog variants' scatter count.
 //
 // Bound on the H100: bytes. The unfused beauty variant reads 24 record
 // rows, 16 state rows and up to 6 texel words and writes 16 state rows, 3
@@ -240,6 +246,21 @@ struct FusedArgs {
                      // place of the by-value arguments
 };
 
+// The fog variants' FusedArgs and their running count of segments that end
+// in a medium (null: no count).
+struct FogArgs : FusedArgs {
+  unsigned long long* scatters;
+};
+
+template <bool FOG>
+struct StepArgs {
+  using type = FusedArgs;
+};
+template <>
+struct StepArgs<true> {
+  using type = FogArgs;
+};
+
 // The record of lane i from K2's [24, P] rows (the unfused K3).
 __device__ __forceinline__ Hit load_record(const float* __restrict__ rec,
                                            int p, int i) {
@@ -276,7 +297,7 @@ __global__ void shade_kernel(
     int use_refraction, int n_volumes, float* __restrict__ out_f,
     int* __restrict__ out_i,
     float* __restrict__ contrib, int* __restrict__ tgt,
-    int* __restrict__ counts, FusedArgs fa) {
+    int* __restrict__ counts, typename StepArgs<FOG>::type fa) {
   if constexpr (FUSED) {
     if (fa.dyn != nullptr) {
       seed = (uint32_t)fa.dyn[0];
@@ -285,7 +306,7 @@ __global__ void shade_kernel(
   }
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool in = i < p;
-  bool live = false, free_lane = false, still = false;
+  bool live = false, free_lane = false, still = false, medium = false;
   if (in) {
     V3 o = v3(sf[i], sf[p + i], sf[2 * p + i]);
     V3 d = v3(sf[3 * p + i], sf[4 * p + i], sf[5 * p + i]);
@@ -382,6 +403,7 @@ __global__ void shade_kernel(
           vol_take = true;
         }
       }
+      medium = live && vol_take;
       if (vol_take) {
         hit = true;
         t_hit = best_vt;
@@ -620,6 +642,13 @@ __global__ void shade_kernel(
     counts[gridDim.x + blockIdx.x] = n_live;
     counts[2 * gridDim.x + blockIdx.x] = n_still;
   }
+  if constexpr (FOG) {
+    if (fa.scatters != nullptr) {
+      int n_medium = __syncthreads_count(medium);
+      if (threadIdx.x == 0 && n_medium > 0)
+        atomicAdd(fa.scatters, (unsigned long long)n_medium);
+    }
+  }
 }
 
 // --- launch 2: respawn --------------------------------------------------------
@@ -804,11 +833,11 @@ extern "C" int pool_start_launch(
       (const float*)grad_rows, (const float*)env_rows, (const float*)vparams, \
       seed, pixel_offset, n_pixels, max_depth, env_mode, aux, z_max,         \
       aov_mask, use_reflection, use_refraction, n_volumes, (float*)out_f,    \
-      (int*)out_i, (float*)contrib, (int*)tgt, (int*)counts, fa
+      (int*)out_i, (float*)contrib, (int*)tgt, (int*)counts
 
 // Both launches of one step: shade_kernel in the variant the features
 // select (FUSED: K3 fused, else the unfused K3 writing contrib and tgt),
-// then respawn_kernel. steps may be null.
+// then respawn_kernel. steps and scatters may be null.
 template <bool FUSED>
 static int launch_step(
     const void* rec, const void* state_f, const void* state_i, int p,
@@ -820,19 +849,20 @@ static int launch_step(
     int n_beauty, int n_volumes, const void* next_work, const void* segments,
     void* out_f, void* out_i, void* contrib, void* tgt, void* counts,
     void* next_out, void* seg_out, void* live_count, void* steps,
-    FusedArgs fa, cudaStream_t s) {
+    FusedArgs fa, unsigned long long* scatters, cudaStream_t s) {
   int grid = (p + BLOCK - 1) / BLOCK;
   if (grid == 0) return (int)cudaErrorInvalidValue;
   bool want_spec = use_reflection || use_refraction;
+  FogArgs fog{fa, scatters};
   switch ((want_spec ? 4 : 0) | (aov_mask ? 2 : 0) | (n_volumes > 0 ? 1 : 0)) {
-    case 0: shade_kernel<false, false, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 1: shade_kernel<false, false, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 2: shade_kernel<false, true, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 3: shade_kernel<false, true, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 4: shade_kernel<true, false, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 5: shade_kernel<true, false, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    case 6: shade_kernel<true, true, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
-    default: shade_kernel<true, true, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS); break;
+    case 0: shade_kernel<false, false, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS, fa); break;
+    case 1: shade_kernel<false, false, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS, fog); break;
+    case 2: shade_kernel<false, true, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS, fa); break;
+    case 3: shade_kernel<false, true, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS, fog); break;
+    case 4: shade_kernel<true, false, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS, fa); break;
+    case 5: shade_kernel<true, false, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS, fog); break;
+    case 6: shade_kernel<true, true, false, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS, fa); break;
+    default: shade_kernel<true, true, true, FUSED><<<grid, BLOCK, 0, s>>>(SHADE_ARGS, fog); break;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -873,12 +903,14 @@ extern "C" int shade_advance_launch(
       inv_w, total_work, max_depth, env_mode, aux, z_max, aov_mask,
       use_reflection, use_refraction, n_beauty, n_volumes, next_work,
       segments, out_f, out_i, contrib, tgt, counts, next_out, seg_out,
-      live_count, nullptr, FusedArgs{}, (cudaStream_t)stream);
+      live_count, nullptr, FusedArgs{}, nullptr, (cudaStream_t)stream);
 }
 
 // K3 fused: decodes K1's hits in registers, adds finished paths into acc
 // in place, and adds the step to steps when it began with live lanes;
-// dyn: null, or the captured step's block (seed, sample_offset, aux).
+// scatters: null, or the fog variants' running count of segments that end
+// in a medium; dyn: null, or the captured step's block (seed,
+// sample_offset, aux).
 extern "C" int shade_accumulate_launch(
     const void* t, const void* idx, const void* typ, const void* state_f,
     const void* state_i, int p, const void* bparams, const void* atlas_rows,
@@ -892,7 +924,7 @@ extern "C" int shade_accumulate_launch(
     float ah, float aw, int has_env, float eh, float ew, int stride,
     const void* next_work, const void* segments, void* out_f, void* out_i,
     void* acc, void* counts, void* next_out, void* seg_out, void* live_count,
-    void* steps, const void* dyn, void* stream) {
+    void* steps, void* scatters, const void* dyn, void* stream) {
   FusedArgs fa{DecodeTables{(const float*)aparams, (const float*)rectab,
                             (const float*)mattab, (const float*)texmeta, n_rec,
                             n_mat, n_tex, n_spheres, n_tris, has_boxes,
@@ -905,20 +937,23 @@ extern "C" int shade_accumulate_launch(
       inv_w, total_work, max_depth, env_mode, aux, z_max, aov_mask,
       use_reflection, use_refraction, n_beauty, n_volumes, next_work,
       segments, out_f, out_i, nullptr, nullptr, counts, next_out, seg_out,
-      live_count, steps, fa, (cudaStream_t)stream);
+      live_count, steps, fa, (unsigned long long*)scatters,
+      (cudaStream_t)stream);
 }
 
 // --- a captured step's per-call inputs ------------------------------------------
 
-// dyn = (seed, sample_offset, aux), and the call's parameter vectors copied
-// into the fixed buffers a captured step reads (one block).
+// dyn = (seed, sample_offset, aux), the call's parameter vectors copied
+// into the fixed buffers a captured step reads, and the scatter count
+// zeroed (one block).
 __global__ void step_inputs_kernel(int* __restrict__ dyn, uint32_t seed,
                                    int sample_offset, int aux,
                                    float* __restrict__ bp,
                                    const float* __restrict__ bp_src, int n_bp,
                                    float* __restrict__ ap,
                                    const float* __restrict__ ap_src,
-                                   int n_ap) {
+                                   int n_ap,
+                                   unsigned long long* __restrict__ scatters) {
   int i = threadIdx.x;
   if (i < n_bp) bp[i] = bp_src[i];
   if (i < n_ap) ap[i] = ap_src[i];
@@ -926,18 +961,21 @@ __global__ void step_inputs_kernel(int* __restrict__ dyn, uint32_t seed,
     dyn[0] = (int)seed;
     dyn[1] = sample_offset;
     dyn[2] = aux;
+    scatters[0] = 0ull;
   }
 }
 
 extern "C" int step_inputs_launch(void* dyn, unsigned int seed,
                                   int sample_offset, int aux, void* bp,
                                   const void* bp_src, int n_bp, void* ap,
-                                  const void* ap_src, int n_ap, void* stream) {
+                                  const void* ap_src, int n_ap,
+                                  void* scatters, void* stream) {
   int n = n_bp > n_ap ? n_bp : n_ap;
   if (n <= 0 || n > 1024) return (int)cudaErrorInvalidValue;
   step_inputs_kernel<<<1, n, 0, (cudaStream_t)stream>>>(
       (int*)dyn, seed, sample_offset, aux, (float*)bp, (const float*)bp_src,
-      n_bp, (float*)ap, (const float*)ap_src, n_ap);
+      n_bp, (float*)ap, (const float*)ap_src, n_ap,
+      (unsigned long long*)scatters);
   return (int)cudaGetLastError();
 }
 

@@ -66,12 +66,12 @@ SIGNATURES = {
                                 + [_U, _I, _I, _I, _F, _I, _F, _I, _I, _I, _I,
                                    _F, _I, _I, _I, _I, _I]
                                 + [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
-                                   _F, _F, _I, _F, _F, _I] + [_P] * 12),
+                                   _F, _F, _I, _F, _F, _I] + [_P] * 13),
     "pool_start_launch": ("shade_advance",
                           [_I, _P, _U, _I, _I, _I, _F, _I, _F, _I, _I, _I]
                           + [_P] * 7),
     "step_inputs_launch": ("shade_advance", [_P, _U, _I, _I, _P, _P, _I, _P,
-                                             _P, _I, _P]),
+                                             _P, _I, _P, _P]),
     "copy_async_launch": ("shade_advance", [_P, _P, _I, _P]),
     "probe_a1_ablate": ("probe_a1_ablate", [_I, _P, _I, _F] + [_P, _P, _I] * 3
                         + [_I, _P, _P, _P, _P]),
@@ -211,6 +211,13 @@ def count_all(pairs) -> None:
     with _count_lock:
         for wrapper, attr in pairs:
             setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def tally(wrapper, **amounts) -> None:
+    """Add each amount to the process-wide total `wrapper.<name>`."""
+    with _count_lock:
+        for attr, n in amounts.items():
+            setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 
 @contextlib.contextmanager

@@ -24,7 +24,8 @@ z-depth AOVs of camera segments, and runs the reflection/refraction split
 passes as spec lanes: work ids n*spp .. 2*n*spp-1 retrace each sample's
 camera ray with RNG context (bounce << 1) | 1 and add to the pass its
 first hit routes them to. Which of these a render needs selects K3's
-compiled variant.
+compiled variant. The fog variants also count the live segments that end
+in a medium (the pool's stats' "scatters").
 
 Per-sample semantics are the reference's: same RNG contexts, constants
 and update order, so a lane's path depends only on (seed, pixel, sample).
@@ -558,7 +559,8 @@ def _raygen(bp, seed, pix, samp, width: int):
 
 
 def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
-                        next_work, segments, bparams, sp: StepParams):
+                        next_work, segments, bparams, sp: StepParams,
+                        scatters=None):
     """Plain PyTorch K3 (reference _shade_advance_kernel).
 
     rec f32[24, P]; state_f f32[12 or 15, P] and state_i i32[4 or 7, P]
@@ -567,7 +569,8 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
     i64[1], live_count i32[1]); output_rows gives C and T, acc_channels
     their meaning. Lane pixel ids are global; a target is the lane's slot
     in the window, li - pixel_offset, or n_pixels, the accumulator's dummy
-    slot."""
+    slot. scatters: None, or an i64[1] running count to which a scene with
+    fog adds, in place, its live lanes whose segment ends in a medium."""
     bp = bparams
     hit = rec[_RO_HIT] > 0.5
     t_hit = rec[_RO_T]
@@ -649,13 +652,15 @@ def shade_advance_plain(tables: FusedTables, rec, state_f, state_i,
             valid = bhit & (e_v < x_v)
             u_v = rng.draw_uniform(lr, rng.STREAM_VOLUME, salt=v + 1)
             flight = nid * torch.log(torch.clamp(u_v, min=1e-38))
-            scatters = valid & (flight <= (x_v - e_v) * ray_len)
+            scatter_v = valid & (flight <= (x_v - e_v) * ray_len)
             t_v = e_v + flight / torch.clamp(ray_len, min=1e-20)
-            take = scatters & (t_v < best_vt)
+            take = scatter_v & (t_v < best_vt)
             best_vt = torch.where(take, t_v, best_vt)
             valb = tuple(torch.where(take, vp[_VP_ALBEDO + k], valb[k])
                          for k in range(3))
             vol_take = vol_take | take
+        if scatters is not None:
+            scatters += (live & vol_take).sum()
         hit = hit | vol_take
         t_hit = torch.where(vol_take, best_vt, t_hit)
         mtype = torch.where(vol_take, float(mat_mod.ISOTROPIC), mtype)
@@ -942,18 +947,20 @@ def new_accumulator(sp: StepParams, device) -> torch.Tensor:
 
 def shade_accumulate_plain(tables: FusedTables, hits, state_f, state_i,
                            next_work, segments, steps, aparams, bparams,
-                           sp: StepParams, acc):
+                           sp: StepParams, acc, scatters=None):
     """Plain PyTorch K3 fused: `decode_plain` of the hits, then
     `shade_advance_plain`, then one index_add_ of its outputs into acc
     (new_accumulator's layout) over the lanes whose target is a pixel,
     channel by channel, each channel in lane order. acc and steps (i64[1],
-    plus one when the step began with live lanes) are updated in place.
-    Returns (state_f, state_i, next_work, segments, live_count, steps)."""
+    plus one when the step began with live lanes) are updated in place, and
+    scatters (None or i64[1]) as `shade_advance_plain` says. Returns
+    (state_f, state_i, next_work, segments, live_count, steps)."""
     steps += (state_i[0] > 0).any().to(torch.int64)
     rec = decode_plain(tables, state_f[:6], *hits, aparams)
     (state_f, state_i, contrib, tgt, next_work, segments,
      live_count) = shade_advance_plain(tables, rec, state_f, state_i,
-                                       next_work, segments, bparams, sp)
+                                       next_work, segments, bparams, sp,
+                                       scatters)
     channels = acc_channels(sp)
     idx = tgt[[t for _, t in channels]].to(torch.int64)
     vals = contrib[[c for c, _ in channels]]
@@ -965,11 +972,13 @@ def shade_accumulate_plain(tables: FusedTables, hits, state_f, state_i,
 
 
 def shade_accumulate(tables: FusedTables, hits, state_f, state_i, next_work,
-                     segments, steps, aparams, bparams, sp: StepParams, acc):
+                     segments, steps, aparams, bparams, sp: StepParams, acc,
+                     scatters=None):
     """K3 fused, one pool step after K1: decode the closest hits `hits` =
     (t, idx, typ) of the rays state_f[:6], shade and advance every lane,
     add what each lane finishes into acc, and respawn free lanes from the
-    work counter. acc and steps are updated in place (see
+    work counter. acc, steps and scatters (None, or the running count of
+    segments that end in a medium, i64[1]) are updated in place (see
     `shade_accumulate_plain`, which CPU tensors take; CUDA tensors launch
     csrc/shade_advance.cu's shade_kernel<..., FUSED = true>, the variant
     that `sp` selects). Returns (state_f, state_i, next_work, segments,
@@ -979,10 +988,11 @@ def shade_accumulate(tables: FusedTables, hits, state_f, state_i, next_work,
     if state_f.device.type == "cpu":
         return shade_accumulate_plain(tables, hits, state_f, state_i,
                                       next_work, segments, steps, aparams,
-                                      bparams, sp, acc)
+                                      bparams, sp, acc, scatters)
     outs = _k3_outputs(state_f, state_i)
     _shade_accumulate_into(tables, hits, state_f, state_i, next_work,
-                           segments, steps, aparams, bparams, sp, acc, outs)
+                           segments, steps, aparams, bparams, sp, acc, outs,
+                           scatters=scatters)
     out_f, out_i, _, next_out, seg_out, live_count = outs
     return out_f, out_i, next_out, seg_out, live_count, steps
 
@@ -993,16 +1003,20 @@ shade_accumulate.features_launches = 0
 
 def _shade_accumulate_into(tables: FusedTables, hits, state_f, state_i,
                            next_work, segments, steps, aparams, bparams,
-                           sp: StepParams, acc, outs, dyn=None) -> None:
+                           sp: StepParams, acc, outs, dyn=None,
+                           scatters=None) -> None:
     """`shade_accumulate`'s launch on the card, into `outs` (the buffers of
     `_k3_outputs`). dyn: None, or a device block i32[3] (seed,
     sample_offset, aux) that the kernels read in place of sp's (a captured
-    step, ops/step_graphs.py)."""
+    step, ops/step_graphs.py). scatters: None, or the i64[1] running count
+    that the fog variants add to."""
     t, idx, typ = hits
     kernels.require_cuda(t, state_f, aparams, acc, tables.rectab,
                          tables.mattab, tables.texmeta, dtype=torch.float32)
     kernels.require_cuda(idx, typ, dtype=torch.int32)
     kernels.require_cuda(steps, dtype=torch.int64)
+    if scatters is not None:
+        kernels.require_cuda(scatters, dtype=torch.int64)
     scalars = _k3_scalars(tables, state_f, state_i, next_work, segments,
                           bparams, sp)
     out_f, out_i, counts, next_out, seg_out, live_count = outs
@@ -1022,7 +1036,7 @@ def _shade_accumulate_into(tables: FusedTables, hits, state_f, state_i,
         1 if tables.scan.counts[2] else 0, float(tables.atlas_hw[0]),
         float(tables.atlas_hw[1]), 1 if tables.env_hw is not None else 0,
         float(eh), float(ew), stride, next_work, segments, out_f, out_i, acc,
-        counts, next_out, seg_out, live_count, steps, dyn)
+        counts, next_out, seg_out, live_count, steps, scatters, dyn)
     if sp.features:
         kernels.count(shade_accumulate, "features_launches")
     else:
@@ -1302,8 +1316,11 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
     the key's first call captures (ops/step_graphs.py); the CPU launches
     step by step. Both run the same steps.
 
-    with_stats also returns {"segments", "steps"}: path segments traced
-    (int64 on the device, exact) and steps taken with live lanes."""
+    with_stats also returns {"segments", "steps", "scatters"}: path
+    segments traced (int64 on the device, exact), steps taken with live
+    lanes, and the segments that end in a medium (0 without fog); each call
+    that reads them adds segments and scatters to the process-wide totals
+    `render_pool_fused.segments` and `.scatters`."""
     from . import step_graphs
     from .integrator import SampleBuffers
 
@@ -1326,10 +1343,10 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
         try:
             with spans.span("pool.loop"):
                 if graph is None:
-                    segments, steps = step_graphs.eager_loop(
+                    segments, steps, scatters = step_graphs.eager_loop(
                         tables, state, aparams, bparams, sp, acc)
                 else:
-                    segments, steps = graph.loop()
+                    segments, steps, scatters = graph.loop()
 
             with spans.span("pool.finish"):
                 n, stride = sp.n_pixels, sp.n_pixels + 1
@@ -1349,12 +1366,23 @@ def render_pool_fused(scene, cam, env, seed: int, config, aux: int,
                 out = SampleBuffers(*(get(f) for f in SampleBuffers._fields))
                 stats = None
                 if with_stats:
-                    ev, counts = _host_copy(torch.cat([segments, steps]))
+                    ev, counts = _host_copy(
+                        torch.cat([segments, steps, scatters]))
                     if ev is not None:
                         _wait(ev)
                     stats = {"segments": int(counts[0]),
-                             "steps": int(counts[1])}
+                             "steps": int(counts[1]),
+                             "scatters": int(counts[2])}
+                    kernels.tally(_TOTALS, segments=stats["segments"],
+                                  scatters=stats["scatters"])
         finally:
             if graph is not None:
                 graph.lock.release()
         return (out, stats) if with_stats else out
+
+
+render_pool_fused.segments = 0
+render_pool_fused.scatters = 0
+# The totals' holder: the function itself, also where a caller has put a
+# wrapper under its module name.
+_TOTALS = render_pool_fused

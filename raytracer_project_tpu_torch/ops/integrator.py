@@ -305,7 +305,8 @@ def accumulate_samples(scene, cam, env, seed: int, config: RenderConfig,
     pixel's sum is the same whichever way the frame is split.
 
     with_stats also returns {"segments", "steps"}: path segments traced,
-    and pool steps (with "engine": "fused" | "pool") or chunks (chunked).
+    and pool steps (with "engine": "fused" | "pool") or chunks (chunked);
+    the fused pool adds "scatters", the segments that end in a medium.
 
     aux is the AOV budget: the AOVs sum the samples whose absolute id is
     below it. None means this call's min(aux_samples, samples_per_pixel),
@@ -378,7 +379,7 @@ def render(scene, cam, env, seed: int, config: RenderConfig, *,
     pass device="cpu" to run the plain PyTorch versions of the kernels.
     seed is an integer or an rng.Key; lane streams match the reference
     package's render with PRNGKey(seed) (with the key of that data).
-    with_stats also returns {"segments", "steps"}."""
+    with_stats also returns accumulate_samples' stats."""
     device = resolve_device(device)
     scene, cam, env = scene.to(device), cam.to(device), env.to(device)
     res = accumulate_samples(scene, cam, env, seed, config,

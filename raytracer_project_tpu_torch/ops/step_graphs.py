@@ -52,6 +52,9 @@ class _StepGraph:
              torch.empty((1,), dtype=i64, device=dev)) for _ in range(2))
         self.live = torch.empty((1,), dtype=i32, device=dev)
         self.steps = torch.empty((1,), dtype=i64, device=dev)
+        # The fog variants' count of segments that end in a medium: one
+        # buffer both graphs add to, zeroed at a call's start.
+        self.scatters = torch.zeros((1,), dtype=i64, device=dev)
         self.counts = torch.empty((3, -(-p // 256)), dtype=i32, device=dev)
         self.acc = fs.new_accumulator(sp, dev)
         self.dyn = torch.empty((3,), dtype=i32, device=dev)
@@ -76,7 +79,8 @@ class _StepGraph:
         fs._shade_accumulate_into(
             self.tables, hits, sf, si, nw, seg, self.steps, self.aparams,
             self.bparams, self.sp, self.acc,
-            (out[0], out[1], self.counts, out[2], out[3], self.live), self.dyn)
+            (out[0], out[1], self.counts, out[2], out[3], self.live), self.dyn,
+            self.scatters)
         kernels.launch("copy_async_launch", self._slot(j + 1), self.live, 4)
 
     def capture(self, owner) -> None:
@@ -102,13 +106,13 @@ class _StepGraph:
         kernels.count(owner, "captured")
 
     def start(self, cam, aparams, bparams, sp: fs.StepParams) -> None:
-        """This call's inputs into the fixed buffers, the accumulator
-        zeroed, the pool's start into state 0 and its live count into slot
-        0."""
+        """This call's inputs into the fixed buffers, the scatter count and
+        the accumulator zeroed, the pool's start into state 0 and its live
+        count into slot 0."""
         kernels.launch("step_inputs_launch", self.dyn, sp.seed,
                        sp.sample_offset, sp.aux, self.bparams, bparams,
                        self.bparams.numel(), self.aparams, aparams,
-                       self.aparams.numel())
+                       self.aparams.numel(), self.scatters)
         self.acc.zero_()
         sf, si, nw, seg = self.state[0]
         fs.initial_state(cam, bparams, sp, self.p,
@@ -119,7 +123,7 @@ class _StepGraph:
     def loop(self):
         """The pool loop of `render_pool_fused` on the graphs: before step
         k >= LIVE_LAG, the count of step k - LIVE_LAG (0 ends the loop).
-        Returns the (segments, steps) tensors."""
+        Returns the (segments, steps, scatters) tensors."""
         k = 1
         while True:
             if k >= fs.LIVE_LAG:
@@ -132,7 +136,7 @@ class _StepGraph:
                 self.events[k % fs.LIVE_LAG].record()
                 kernels.count_all(self.counted)
             k += 1
-        return self.state[(k - 1) % 2][3], self.steps
+        return self.state[(k - 1) % 2][3], self.steps, self.scatters
 
 
 class StepGraphs:
@@ -201,8 +205,9 @@ cache = StepGraphs()
 
 def eager_loop(tables, state, aparams, bparams, sp: fs.StepParams, acc):
     """The pool loop launch by launch (the CPU's): state = initial_state's
-    six tensors. Returns the (segments, steps) tensors."""
+    six tensors. Returns the (segments, steps, scatters) tensors."""
     state_f, state_i, next_work, live_count, segments, steps = state
+    scatters = torch.zeros((1,), dtype=torch.int64, device=acc.device)
     lag = 1 if acc.device.type == "cpu" else fs.LIVE_LAG
     pending = collections.deque([fs._host_copy(live_count)])
     while True:
@@ -219,6 +224,6 @@ def eager_loop(tables, state, aparams, bparams, sp: fs.StepParams, acc):
             (state_f, state_i, next_work, segments, live_count,
              steps) = fs.shade_accumulate(
                 tables, hits, state_f, state_i, next_work, segments, steps,
-                aparams, bparams, sp, acc)
+                aparams, bparams, sp, acc, scatters)
         pending.append(fs._host_copy(live_count))
-    return segments, steps
+    return segments, steps, scatters

@@ -313,7 +313,8 @@ def render_pool(scene, cam, env, seed: int, config, pixel_ids=None,
     together count the samples of one call.
 
     with_stats also returns {"segments", "steps", "engine"}; engine is
-    "fused" or "pool"."""
+    "fused" or "pool", and the fused pool adds "scatters", the segments
+    that end in a medium."""
     if pixel_ids is not None and n_pixels_local is not None:
         raise ValueError("a pixel window takes pixel_ids=None")
     if aux is None:
@@ -346,7 +347,7 @@ def _render_fused(scene, cam, env, seed, config, chunk, sample_offset,
                   pixel_offset, n_pixels_local, aux):
     spp = config.samples_per_pixel
     out = None
-    segments = steps = 0
+    segments = steps = scatters = 0
     for off in range(0, spp, chunk):
         cfg_c = dataclasses.replace(config,
                                     samples_per_pixel=min(chunk, spp - off))
@@ -356,6 +357,7 @@ def _render_fused(scene, cam, env, seed, config, chunk, sample_offset,
             n_pixels_local=n_pixels_local)
         segments += st["segments"]
         steps += st["steps"]
+        scatters += st["scatters"]
         out = res if out is None else type(res)(*(a + b for a, b in
                                                    zip(out, res)))
-    return out, {"segments": segments, "steps": steps}
+    return out, {"segments": segments, "steps": steps, "scatters": scatters}

@@ -140,7 +140,8 @@ def sharded_accumulate(scene, cam, env, seed: int, config, ids_padded,
     window (pixel_offset = i * n_local), the fused pool's route; any
     other id list renders each window's slice as explicit pixel ids.
     with_stats also returns {"segments": summed over the windows, "steps":
-    the most of any window}. aux: accumulate_samples' AOV budget."""
+    the most of any window}, and "scatters" summed where every window
+    reports it (the fused pool). aux: accumulate_samples' AOV budget."""
     n_shards = len(mesh)
     ids = np.asarray(torch.as_tensor(ids_padded).cpu())
     if ids.shape[0] % n_shards:
@@ -184,8 +185,11 @@ def sharded_accumulate(scene, cam, env, seed: int, config, ids_padded,
         fields.append(torch.cat(parts))
     out = integrator.SampleBuffers(*fields)
     if with_stats:
-        return out, {"segments": sum(st["segments"] for _, st in results),
-                     "steps": max(st["steps"] for _, st in results)}
+        stats = {"segments": sum(st["segments"] for _, st in results),
+                 "steps": max(st["steps"] for _, st in results)}
+        if all("scatters" in st for _, st in results):
+            stats["scatters"] = sum(st["scatters"] for _, st in results)
+        return out, stats
     return out
 
 

@@ -214,17 +214,19 @@ def fused_step(tables, hits, state, aparams, bparams, sp,
     can finish in one step their adds land in either order), its dummy
     slots untouched; the
     segment and step counts equal, next_work and the live count too where
-    no lane differs; every lane's pixel inside the step's window. Returns
-    the largest |d| of the accumulator and the kernel's accumulator
-    [channels, pixels]."""
+    no lane differs; the counts of segments that end in a medium within
+    `lane_budget` of each other (0 without fog); every lane's pixel inside
+    the step's window. Returns the largest |d| of the accumulator and the
+    kernel's accumulator [channels, pixels]."""
     sf, si, nw, seg = state
     dev, n = sf.device, sp.n_pixels
-    outs, accs = [], []
+    outs, accs, scatters = [], [], []
     for fn in (fs.shade_accumulate, fs.shade_accumulate_plain):
         acc = fs.new_accumulator(sp, dev)
         steps = torch.zeros(1, dtype=torch.int64, device=dev)
+        scatters.append(torch.zeros(1, dtype=torch.int64, device=dev))
         outs.append(fn(tables, hits, sf, si, nw, seg, steps, aparams,
-                       bparams, sp, acc))
+                       bparams, sp, acc, scatters[-1]))
         accs.append(acc.view(len(fs.acc_channels(sp)), n + 1))
     out, ref = outs
     bad = differing_lanes(out[:2], ref[:2])
@@ -241,6 +243,9 @@ def fused_step(tables, hits, state, aparams, bparams, sp,
     check(not bool(accs[0][:, n].any()), f"{name}: a dummy slot was added to")
     check(int(out[3]) == int(ref[3]), f"{name}: segment count")
     check(int(out[5]) == int(ref[5]) == 1, f"{name}: step count")
+    card, plain = (int(x) for x in scatters)
+    check(abs(card - plain) <= lane_budget and (sp.n_volumes > 0 or plain == 0),
+          f"{name}: scatter count {card}, plain {plain}")
     if not n_bad:
         check(torch.equal(out[2], ref[2]) and torch.equal(out[4], ref[4]),
               f"{name}: next_work or the live count")

@@ -1646,23 +1646,45 @@ def test_bench_bvh_cases_agree_on_card(cuda):
 
 # --- the fused pool's captured steps (ops/step_graphs.py) --------------------
 
+def _cornell_smoke():
+    """(scene, camera keywords, environment keywords, depth) of the
+    benchmark's fog Cornell box (`benchmark/configs/cornell_smoke.*`): six
+    boxes, an emitter, two box media of density 0.01, a black world."""
+    from benchmark import harness
+    from raytracer_project_tpu_torch.models.scene import SceneBuilder
+
+    cell = harness.load_cell("cornell_smoke.final")
+    cfg = cell.cfg
+    b = SceneBuilder()
+    cell.generator.build(b, cfg)
+    cam_kw = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in cfg["camera"].items()}
+    env_kw = {k: v for k, v in cfg["environment"].items() if k != "mode"}
+    return (b.build(with_bvh=False), cam_kw, env_kw,
+            int(cfg["render"]["max_depth"]))
+
+
 def _graph_frame(cuda, name, w=64, h=36, spp=2, **cfg_kw):
     """(scene, camera, environment, config) of a frame of the showcase or
-    of the funnel (its BVH built by the pool), beauty, depth 10, inputs on
-    the card."""
+    of the funnel (its BVH built by the pool), beauty, depth 10, or of the
+    fog Cornell box (a black world, depth 50), inputs on the card."""
+    env_kw = dict(sun_direction=(0.4, 0.7, 0.2), sun_intensity=6.0)
+    depth, mode = 10, tenv.PHYSICAL_SUN
     if name == "funnel":
         scene = presets.bvh_stress_scene(n_spheres=8192, mesh_detail=2,
                                          with_bvh=False)
         cam_kw = FUNNEL_CAM
+    elif name == "cornell":
+        scene, cam_kw, env_kw, depth = _cornell_smoke()
+        mode = tenv.SOLID_COLOR
     else:
         scene, cam_kw = presets.showcase_scene(), CAM_KW
     cam = tcam.make_camera(image_width=w, image_height=h, **cam_kw)
-    env = tenv.make_environment(sun_direction=(0.4, 0.7, 0.2),
-                                sun_intensity=6.0)
+    env = tenv.make_environment(**env_kw)
     cfg = integrator.RenderConfig(width=w, height=h, samples_per_pixel=spp,
-                                  max_depth=10, use_albedo=False,
-                                  use_normal=False, use_z_depth=False,
-                                  **cfg_kw)
+                                  max_depth=depth, env_mode=mode,
+                                  use_albedo=False, use_normal=False,
+                                  use_z_depth=False, **cfg_kw)
     return scene.to(cuda), cam.to(cuda), env.to(cuda), cfg
 
 
@@ -1685,7 +1707,7 @@ def _pool_call(inputs, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["showcase", "funnel"])
+@pytest.mark.parametrize("name", ["showcase", "funnel", "cornell"])
 @pytest.mark.parametrize("size", [(64, 36, 2), (800, 450, 32)])
 def test_replayed_steps_equal_the_eager_steps(cuda, name, size, monkeypatch):
     """A pool call stepped launch by launch (the entry's `take` stood in
@@ -1696,7 +1718,9 @@ def test_replayed_steps_equal_the_eager_steps(cuda, name, size, monkeypatch):
     launches (K1, on the funnel the BVH kernel every time, and K3 fused as
     often: one more than the steps, the lag's no-op step), the capture
     adding none. At 800x450 @ 32 spp, chip_smoke.py's frame (one pool
-    call), these are the launches a frame."""
+    call), these are the launches a frame. In the fog Cornell box the
+    stats' scatters (K3 fused's fog variant) are the eager call's too, and
+    not 0."""
     monkeypatch.setattr(step_graphs, "cache", step_graphs.StepGraphs())
     inputs = _graph_frame(cuda, name, *size)
     with monkeypatch.context() as eager:
@@ -1710,8 +1734,55 @@ def test_replayed_steps_equal_the_eager_steps(cuda, name, size, monkeypatch):
         assert gst == est
         assert gl[:3] == el[:3] and gl[0] == gl[2] == gst["steps"] + 1
         assert gl[1] == (gl[0] if name == "funnel" else 0)
+        assert (gst["scatters"] > 0) == (name == "cornell")
         torch.testing.assert_close(graph, want, rtol=3e-4, atol=3e-4)
         assert float(graph.max()) > 0
+
+
+@pytest.mark.cuda
+def test_fog_kernel_counts_the_plain_scatters_in_the_cornell_box(cuda):
+    """K3 fused's beauty fog variant (`shade_kernel<false, false, true,
+    true>`) against its plain version on one step of P random path states
+    inside the fog Cornell box (85% live, bounces 0-49): the counts of
+    live segments that end in a medium differ by no more than the lanes
+    whose fog flight may flip on an ulp of logf (0.5% of the pool, the
+    budget of the features step), and there are thousands of them; the
+    rest of the step as agree.fused_step holds it."""
+    scene, cam, env, cfg = _graph_frame(cuda, "cornell", 600, 600, 8)
+    tables = fs.build_tables(scene, env, cfg.env_mode)
+    r = np.random.default_rng(17)
+    n = cfg.n_pixels
+    od = torch.as_tensor(np.concatenate(
+        [r.uniform(10.0, 545.0, (3, P)), r.normal(size=(3, P))]
+    ).astype(np.float32)).to(cuda)
+    state_f = torch.cat([od, torch.as_tensor(r.uniform(
+        0.2, 1.5, (6, P)).astype(np.float32)).to(cuda)]).contiguous()
+    state_i = torch.as_tensor(np.stack(
+        [r.random(P) < 0.85, r.integers(0, 50, P), r.integers(0, 8, P),
+         r.permutation(n)[:P]]).astype(np.int32)).to(cuda)
+    sp = fs.StepParams(
+        seed=rng.seed_from_int(7), sample_offset=0, n_pixels=n, width=600,
+        total_work=n * 8, max_depth=50, env_mode=cfg.env_mode, aux=0,
+        z_max=50.0, aovs=(), use_reflection=False, use_refraction=False,
+        n_beauty=n * 8, n_volumes=scene.volumes.count)
+    hits = k1.closest_hit(od, 1e-3, tables.scan)
+    aparams, bparams = fs._aparams(env, cuda), fs._bparams(cam, env, cuda)
+    state = (state_f, state_i,
+             torch.tensor([n * 8 - 9000], dtype=torch.int32, device=cuda),
+             torch.tensor([11], dtype=torch.int64, device=cuda))
+    budget = int(0.005 * P)
+    agree.fused_step(tables, hits, state, aparams, bparams, sp, budget,
+                     "cornell")
+    counts = []
+    for fn in (fs.shade_accumulate, fs.shade_accumulate_plain):
+        scatters = torch.zeros(1, dtype=torch.int64, device=cuda)
+        fn(tables, hits, *state[:4], torch.zeros(1, dtype=torch.int64,
+                                                 device=cuda),
+           aparams, bparams, sp, fs.new_accumulator(sp, cuda), scatters)
+        counts.append(int(scatters))
+    print("cornell scatters card, plain:", counts)
+    assert abs(counts[0] - counts[1]) <= budget
+    assert counts[1] > 1000
 
 
 @pytest.mark.cuda
@@ -1812,14 +1883,16 @@ def test_window_threads_capture_on_their_streams(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["showcase", "funnel"])
+@pytest.mark.parametrize("name", ["showcase", "funnel", "cornell"])
 def test_replayed_steps_show_their_kernels_to_the_profiler(cuda, name,
                                                            monkeypatch):
     """Under torch.profiler, as the benchmark's traced runs read it
     (kineto's device events), a pool call that replays its captured step
     shows the kernels the roofline readers look for, each with device
     time: K1's tile scan (on the funnel the BVH walk), K3 fused's shade
-    kernel and the respawn kernel."""
+    kernel (in the fog Cornell box its fog variant, under the name that
+    `benchmark/layer_metrics/k3.fog_roofline_share.py` matches) and the
+    respawn kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     monkeypatch.setattr(step_graphs, "cache", step_graphs.StepGraphs())
@@ -1837,7 +1910,10 @@ def test_replayed_steps_show_their_kernels_to_the_profiler(cuda, name,
             dev_ns[e.name()] = (dev_ns.get(e.name(), 0)
                                 + int(e.end_ns()) - int(e.start_ns()))
     hit = "bvh_hit_kernel" if name == "funnel" else "tile_scan_kernel<true"
-    for tag in (hit, "shade_kernel", "respawn_kernel"):
+    shade = ("shade_kernel<false, false, true, true>" if name == "cornell"
+             else "shade_kernel<false, false, false, true>")
+    print(name, sorted(dev_ns))
+    for tag in (hit, shade, "respawn_kernel"):
         assert sum(v for k, v in dev_ns.items() if tag in k) > 0, (
             tag, sorted(dev_ns))
 

@@ -306,8 +306,9 @@ def test_k3_wrappers_pass_their_c_signatures(scenes, features, monkeypatch):
     fused's launch in a captured step, driven with meta tensors: each
     launch passes as many arguments as its C entry's ctypes signature has
     (the stream last), a tensor exactly where the signature has a pointer,
-    but for K3 fused's last one (the captured step's block `dyn`), which
-    the eager launch passes as None (a null pointer)."""
+    but for K3 fused's last two (the fog variants' scatter count and the
+    captured step's block `dyn`), which a launch without them passes as
+    None (a null pointer)."""
     from raytracer_project_tpu_torch import kernels
 
     seen = []
@@ -317,8 +318,8 @@ def test_k3_wrappers_pass_their_c_signatures(scenes, features, monkeypatch):
         assert len(args) + 1 == len(types), entry
         for k, (a, t) in enumerate(zip(args, types)):
             if a is None:
-                assert (entry, k) == ("shade_accumulate_launch",
-                                      len(args) - 1)
+                assert entry == "shade_accumulate_launch"
+                assert k in (len(args) - 2, len(args) - 1)
                 assert t is kernels._P
                 continue
             assert isinstance(a, torch.Tensor) == (t is kernels._P), (entry, k)
@@ -345,4 +346,7 @@ def test_k3_wrappers_pass_their_c_signatures(scenes, features, monkeypatch):
     tfs._shade_accumulate_into(tables, hits, *state, meta(1, i64), meta(8),
                                meta(40), sp, acc, tfs._k3_outputs(*state[:2]),
                                meta(3, i32))
-    assert seen == ["shade_advance_launch"] + ["shade_accumulate_launch"] * 2
+    tfs._shade_accumulate_into(tables, hits, *state, meta(1, i64), meta(8),
+                               meta(40), sp, acc, tfs._k3_outputs(*state[:2]),
+                               meta(3, i32), meta(1, i64))
+    assert seen == ["shade_advance_launch"] + ["shade_accumulate_launch"] * 3
